@@ -13,7 +13,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles the CUDA kernels of mom6_tpu_torch/csrc with nvcc, one
    compiler per source, all started together; registers, spills and
-   shared memory of the Thomas and the remap kernels from ptxas;
+   shared memory of the Thomas, the remap and the PPM edge kernels from
+   ptxas (no spills allowed);
 3. kernels: each kernel against its plain PyTorch version on the card, with
    the kernel's and the plain version's times and the card's bound for the
    same work: the Thomas solve and the PPM passes at the global path's
@@ -25,8 +26,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    (nf=2, 75, 270, 360), from 32 to 40 layers, with five fields, and onto
    the source grid itself (every interface ties); the y passes across the
    tripolar fold on the half-degree global grid at (32, 400, 720) and on a
-   polar cap at (7, 33, 45).  The Thomas solve and the remap must equal
-   their plain versions to the bit;
+   polar cap at (7, 33, 45).  Every kernel must equal its plain version
+   to the bit; each kernel's own device time (torch.profiler) is
+   reported beside its time from an idle device;
 4. the fold, exactly: a bump on the north pole of a polar cap without
    rotation stays mirror-symmetric to the bit over 10 steps;
 5. float64, on the card with the kernels against the CPU with the plain
@@ -181,10 +183,8 @@ META = {
 META["ppm_edges_y_fold"] = META["ppm_edges_y"]
 META["ppm_flux_y_fold"] = META["ppm_flux_y"]
 # kernel against plain version on the card: the same operations in the
-# same order (nvcc --fmad=false), so the expected difference is 0; the
-# bound allows a few ulps of float32 in case the card's library rounds
-# a division differently
-KERNEL_RTOL = 1e-6
+# same order (nvcc --fmad=false), so every kernel must be bitwise equal to
+# its plain version (0 ulps)
 # the card's published peaks (H100 SXM data sheet, at a 700 W limit):
 # device memory 3.35 TB/s, float32 outside the tensor cores 67 TFLOP/s
 HBM_BYTES_PER_S = 3.35e12
@@ -193,9 +193,12 @@ F32_FLOP_PER_S = 67e12
 TIMES = {}
 # float32 operations per element, counted from the kernels' sources:
 # Thomas 7 forward + 2 backward; the PPM edges with the positive-definite
-# limiter 3 slopes of 25, 8 for the edges, 22 for the limiter; the PPM flux
-# with dw*rem 44
-FLOPS_PER_POINT = {"tridiag": 9, "ppm_edges": 105, "ppm_flux": 44}
+# limiter one slope of 25, 8 for the edges, 22 for the limiter; the PPM
+# flux with dw*rem 44
+FLOPS_PER_POINT = {"tridiag": 9, "ppm_edges": 55, "ppm_flux": 44}
+# (name, monotonic, simple_2nd) of the three PPM limiters
+LIMITERS = (("pos", False, False), ("cw84", True, False),
+            ("simple2nd", False, True))
 
 
 def log(msg):
@@ -316,7 +319,12 @@ def phase_build():
         f"sources in parallel): {len(regs)} kernel instances, "
         f"{min(regs)}-{max(regs)} registers per thread, {spills} bytes of "
         f"spill stores")
-    for family in ("thomas_kernel", "remap_kernel"):
+    for family, note in (
+            ("thomas_kernel", " (the per-column arrays are dynamic shared "
+             "memory, sized at the launch)"),
+            ("remap_kernel", " (the per-column sums are dynamic shared "
+             "memory, sized at the launch)"),
+            ("ppm_edges_kernel", " (the tiles' h, mask and slopes)")):
         mine = [e for e in entries if family in e["name"]]
         if not mine:
             raise AssertionError(f"ptxas reported no {family}")
@@ -325,9 +333,8 @@ def phase_build():
         log(f"[build] {family}: {len(mine)} instances, {min(r)}-{max(r)} "
             f"registers per thread, {max(e['stack'] for e in mine)} bytes "
             f"of stack, {spilled} bytes of spills, "
-            f"{max(e['smem'] for e in mine)} bytes of static shared memory "
-            f"(the per-column arrays are dynamic shared memory, sized at "
-            f"the launch)")
+            f"{max(e['smem'] for e in mine)} bytes of static shared "
+            f"memory{note}")
         if spilled:
             raise AssertionError(f"{family} spills {spilled} bytes")
 
@@ -382,10 +389,13 @@ def _ppm_inputs(shape, seed, dev):
                 rem=t(rng.uniform(0.2, 1.0, shape)))
 
 
-def _kernel_row(err, ms, pms, nbytes, nflops, shape):
+def _kernel_row(err, ms, d_ms, pms, nbytes, nflops, shape):
+    """A kernel's row of the JSON line: ``ms`` from an idle device,
+    ``d_ms`` the kernel's own device time."""
     b_ms, b_by = bound(nbytes, nflops)
-    return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None, shape=list(shape))
+    return dict(max_abs_err=err, ms=ms, device_ms=d_ms, plain_ms=pms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                shape=list(shape))
 
 
 def _keep(results, name, shape, row):
@@ -397,7 +407,6 @@ def _keep(results, name, shape, row):
 
 def _check_tridiag_ppm(shape, dev, results):
     n = math.prod(shape)
-    plane = shape[1] * shape[2]
     a, b, c, d = _tridiag_inputs(shape, 1, dev)
     x_k = solvers.tridiag_solve(a, b, c, d)
     x_p = solvers.tridiag_solve_plain(a, b, c, d)
@@ -407,8 +416,8 @@ def _check_tridiag_ppm(shape, dev, results):
     d_ms = device_ms(lambda: solvers.tridiag_solve(a, b, c, d),
                      "thomas_kernel")
     pms = median_ms(lambda: solvers.tridiag_solve_plain(a, b, c, d))
-    row = _kernel_row(float((x_k - x_p).abs().max()), ms, pms, 4 * 5 * n,
-                      FLOPS_PER_POINT["tridiag"] * n, shape)
+    row = _kernel_row(float((x_k - x_p).abs().max()), ms, d_ms, pms,
+                      4 * 5 * n, FLOPS_PER_POINT["tridiag"] * n, shape)
     log(f"[kernel] tridiag {shape}: max rel err {err:.3e}, max ulps {ulps} "
         f"(must be 0); "
         f"kernel {ms:.4f} ms ({d_ms:.4f} ms on the device), plain {pms:.4f} "
@@ -430,56 +439,88 @@ def _check_tridiag_ppm(shape, dev, results):
              G.dxCv * G.mask2dCv, dt * G.IdyT,
              dt * torch.roll(G.IdyT, -1, -2))):
         direction = cppm._DIR_X if dname == "x" else cppm._DIR_Y
-        errs = []
-        for lim, (mono, s2) in (("pos", (False, False)),
-                                ("cw84", (True, False)),
-                                ("simple2nd", (False, True))):
-            hl_k, hr_k = edges(h, G.mask2dT, 1e-10, mono, s2)
-            hl_p, hr_p = cppm.ppm_edges_plain(h, G.mask2dT, 1e-10, mono,
-                                              s2, direction)
-            e = max(rel_err(hl_k, hl_p), rel_err(hr_k, hr_p))
-            ul = max(max_ulps(hl_k, hl_p), max_ulps(hr_k, hr_p))
-            log(f"[kernel] ppm_edges_{dname} {lim} {shape}: max rel "
-                f"err {e:.3e} (tol {KERNEL_RTOL:g}), max ulps {ul}")
-            if not e <= KERNEL_RTOL:
-                raise AssertionError(f"ppm_edges_{dname} {lim}: {e}")
-            errs.append(float(max((hl_k - hl_p).abs().max(),
-                                  (hr_k - hr_p).abs().max())))
+        e_row = _check_edges(
+            f"ppm_edges_{dname}", shape,
+            lambda mono, s2: edges(h, G.mask2dT, 1e-10, mono, s2),
+            lambda mono, s2: cppm.ppm_edges_plain(h, G.mask2dT, 1e-10, mono,
+                                                  s2, direction), h)
         hl, hr = edges(h, G.mask2dT, 1e-10)
-        e_ms = median_ms(lambda: edges(h, G.mask2dT, 1e-10))
-        e_pms = median_ms(lambda: cppm.ppm_edges_plain(
-            h, G.mask2dT, 1e-10, False, False, direction))
-        e_row = _kernel_row(max(errs), e_ms, e_pms, 4 * (3 * n + plane),
-                            FLOPS_PER_POINT["ppm_edges"] * n, shape)
-        log(f"[kernel] ppm_edges_{dname} {shape}: kernel {e_ms:.4f} ms, "
-            f"plain {e_pms:.4f} ms, bound {e_row['bound_ms']:.4f} ms "
-            f"({e_row['bound_by']})")
-        ferrs = []
-        for adj in (False, True):
-            kw = dict(dw=P["dw"], rem=P["rem"]) if adj else {}
-            f_k = flux(h, hl, hr, face, d_p, d_m, u, **kw)
-            f_p = cppm.ppm_flux_plain(h, hl, hr, face, d_p, d_m, u,
-                                      kw.get("dw"), kw.get("rem"),
-                                      direction)
-            e = max(rel_err(f_k[0], f_p[0]), rel_err(f_k[1], f_p[1]))
-            ul = max(max_ulps(f_k[0], f_p[0]), max_ulps(f_k[1], f_p[1]))
-            log(f"[kernel] ppm_flux_{dname} adjust={adj} {shape}: max "
-                f"rel err {e:.3e} (tol {KERNEL_RTOL:g}), max ulps {ul}")
-            if not e <= KERNEL_RTOL:
-                raise AssertionError(f"ppm_flux_{dname} {adj}: {e}")
-            ferrs.append(float(max((f_k[0] - f_p[0]).abs().max(),
-                                   (f_k[1] - f_p[1]).abs().max())))
-        f_ms = median_ms(lambda: flux(h, hl, hr, face, d_p, d_m, u,
-                                      dw=P["dw"], rem=P["rem"]))
-        f_pms = median_ms(lambda: cppm.ppm_flux_plain(
-            h, hl, hr, face, d_p, d_m, u, P["dw"], P["rem"], direction))
-        f_row = _kernel_row(max(ferrs), f_ms, f_pms, 4 * (7 * n + 4 * plane),
-                            FLOPS_PER_POINT["ppm_flux"] * n, shape)
-        log(f"[kernel] ppm_flux_{dname} adjust=True {shape}: kernel "
-            f"{f_ms:.4f} ms, plain {f_pms:.4f} ms, bound "
-            f"{f_row['bound_ms']:.4f} ms ({f_row['bound_by']})")
+        f_row = _check_flux(
+            f"ppm_flux_{dname}", shape,
+            lambda **kw: flux(h, hl, hr, face, d_p, d_m, u, **kw),
+            lambda dw, rem: cppm.ppm_flux_plain(h, hl, hr, face, d_p, d_m, u,
+                                                dw, rem, direction),
+            P["dw"], P["rem"])
         _keep(results, f"ppm_edges_{dname}", shape, e_row)
         _keep(results, f"ppm_flux_{dname}", shape, f_row)
+
+
+def _check_edges(label, shape, kernel, plain, h):
+    """The edge kernel ``kernel(monotonic, simple_2nd)`` of ``h`` against
+    its plain version ``plain(...)`` for each limiter: 0 ulps.  Times and
+    the row with the positive-definite limiter; beside them, as a yardstick
+    of what the card's memory gives this traffic, the device time of one
+    PyTorch call that moves the same bytes (``torch.frexp``: reads one
+    field, writes two of its size)."""
+    n, plane = math.prod(shape), shape[1] * shape[2]
+    errs = []
+    for lim, mono, s2 in LIMITERS:
+        hl_k, hr_k = kernel(mono, s2)
+        hl_p, hr_p = plain(mono, s2)
+        e = max(rel_err(hl_k, hl_p), rel_err(hr_k, hr_p))
+        ul = max(max_ulps(hl_k, hl_p), max_ulps(hr_k, hr_p))
+        log(f"[kernel] {label} {lim} {shape}: max rel err {e:.3e}, max ulps "
+            f"{ul} (must be 0)")
+        if ul != 0:
+            raise AssertionError(f"{label} {lim} {shape}: {ul} ulps, err {e}")
+        errs.append(float(max((hl_k - hl_p).abs().max(),
+                              (hr_k - hr_p).abs().max())))
+    ms = median_ms(lambda: kernel(False, False))
+    d_ms = device_ms(lambda: kernel(False, False), "ppm_edges_kernel")
+    pms = median_ms(lambda: plain(False, False))
+    f_ms = device_ms(lambda: torch.frexp(h), "")
+    row = _kernel_row(max(errs), ms, d_ms, pms, 4 * (3 * n + plane),
+                      FLOPS_PER_POINT["ppm_edges"] * n, shape)
+    log(f"[kernel] {label} {shape}: kernel {ms:.4f} ms ({d_ms:.4f} ms on "
+        f"the device), plain {pms:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}); torch.frexp, the same bytes, {f_ms:.4f} ms "
+        f"on the device")
+    TIMES[f"{label} {shape}"] = ms
+    TIMES[f"{label} {shape} device"] = d_ms
+    TIMES[f"{label} {shape} frexp device"] = f_ms
+    return row
+
+
+def _check_flux(label, shape, kernel, plain, dw, rem):
+    """The flux kernel ``kernel(**kw)`` at w = u and at u + dw*rem against
+    its plain version ``plain(dw, rem)``: 0 ulps.  Times and the row at
+    u + dw*rem."""
+    n, plane = math.prod(shape), shape[1] * shape[2]
+    errs = []
+    for adj in (False, True):
+        kw = dict(dw=dw, rem=rem) if adj else {}
+        f_k = kernel(**kw)
+        f_p = plain(kw.get("dw"), kw.get("rem"))
+        e = max(rel_err(f_k[0], f_p[0]), rel_err(f_k[1], f_p[1]))
+        ul = max(max_ulps(f_k[0], f_p[0]), max_ulps(f_k[1], f_p[1]))
+        log(f"[kernel] {label} adjust={adj} {shape}: max rel err {e:.3e}, "
+            f"max ulps {ul} (must be 0)")
+        if ul != 0:
+            raise AssertionError(f"{label} adjust={adj} {shape}: {ul} ulps, "
+                                 f"err {e}")
+        errs.append(float(max((f_k[0] - f_p[0]).abs().max(),
+                              (f_k[1] - f_p[1]).abs().max())))
+    ms = median_ms(lambda: kernel(dw=dw, rem=rem))
+    d_ms = device_ms(lambda: kernel(dw=dw, rem=rem), "ppm_flux_kernel")
+    pms = median_ms(lambda: plain(dw, rem))
+    row = _kernel_row(max(errs), ms, d_ms, pms, 4 * (7 * n + 4 * plane),
+                      FLOPS_PER_POINT["ppm_flux"] * n, shape)
+    log(f"[kernel] {label} adjust=True {shape}: kernel {ms:.4f} ms "
+        f"({d_ms:.4f} ms on the device), plain {pms:.4f} ms, bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+    TIMES[f"{label} {shape}"] = ms
+    TIMES[f"{label} {shape} device"] = d_ms
+    return row
 
 
 def _check_tridiag_shared(dev):
@@ -533,7 +574,6 @@ def _check_fold(G, dt, h, dev, results):
     tripolar fold of grid ``G``, through their wrappers, against the plain
     versions; same bytes and operations as the wrap rows."""
     shape = tuple(h.shape)
-    n, plane = math.prod(shape), shape[1] * shape[2]
     rng = np.random.default_rng(4)
     t = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
     v = t(0.3 * rng.standard_normal(shape)) * G.mask2dCv
@@ -544,58 +584,24 @@ def _check_fold(G, dt, h, dev, results):
     edges, flux = cppm.merid_edges, cppm.merid_flux
     before = (edges.fold_launches, flux.fold_launches, edges.launches,
               flux.launches)
-    errs = []
-    for lim, (mono, s2) in (("pos", (False, False)), ("cw84", (True, False)),
-                            ("simple2nd", (False, True))):
-        hl_k, hr_k = edges(h, G.mask2dT, 1e-10, mono, s2, fold=True)
-        hl_p, hr_p = cppm.ppm_edges_plain(h, G.mask2dT, 1e-10, mono, s2,
-                                          cppm._DIR_Y, fold=True)
-        e = max(rel_err(hl_k, hl_p), rel_err(hr_k, hr_p))
-        ul = max(max_ulps(hl_k, hl_p), max_ulps(hr_k, hr_p))
-        log(f"[kernel] ppm_edges_y_fold {lim} {shape}: max rel err {e:.3e} "
-            f"(tol {KERNEL_RTOL:g}), max ulps {ul}")
-        if not e <= KERNEL_RTOL:
-            raise AssertionError(f"ppm_edges_y_fold {lim}: {e}")
-        errs.append(float(max((hl_k - hl_p).abs().max(),
-                              (hr_k - hr_p).abs().max())))
+    e_row = _check_edges(
+        "ppm_edges_y_fold", shape,
+        lambda mono, s2: edges(h, G.mask2dT, 1e-10, mono, s2, fold=True),
+        lambda mono, s2: cppm.ppm_edges_plain(h, G.mask2dT, 1e-10, mono, s2,
+                                              cppm._DIR_Y, fold=True), h)
     hl, hr = edges(h, G.mask2dT, 1e-10, fold=True)
     # the fold is not the wrap: the top row's north edge differs
     _, hr_w = cppm.ppm_edges_plain(h, G.mask2dT, 1e-10, False, False,
                                    cppm._DIR_Y)
     if torch.equal(hr_w[:, -1], hr[:, -1]):
         raise AssertionError("fold edges equal the wrap's on the top row")
-    e_ms = median_ms(lambda: edges(h, G.mask2dT, 1e-10, fold=True))
-    e_pms = median_ms(lambda: cppm.ppm_edges_plain(
-        h, G.mask2dT, 1e-10, False, False, cppm._DIR_Y, fold=True))
-    e_row = _kernel_row(max(errs), e_ms, e_pms, 4 * (3 * n + plane),
-                        FLOPS_PER_POINT["ppm_edges"] * n, shape)
-    log(f"[kernel] ppm_edges_y_fold {shape}: kernel {e_ms:.4f} ms, plain "
-        f"{e_pms:.4f} ms, bound {e_row['bound_ms']:.4f} ms "
-        f"({e_row['bound_by']})")
-    ferrs = []
-    for adj in (False, True):
-        kw = dict(dw=dw, rem=rem) if adj else {}
-        f_k = flux(h, hl, hr, face, d_p, d_m, v, fold=True, **kw)
-        f_p = cppm.ppm_flux_plain(h, hl, hr, face, d_p, d_m, v,
-                                  kw.get("dw"), kw.get("rem"), cppm._DIR_Y,
-                                  fold=True)
-        e = max(rel_err(f_k[0], f_p[0]), rel_err(f_k[1], f_p[1]))
-        ul = max(max_ulps(f_k[0], f_p[0]), max_ulps(f_k[1], f_p[1]))
-        log(f"[kernel] ppm_flux_y_fold adjust={adj} {shape}: max rel err "
-            f"{e:.3e} (tol {KERNEL_RTOL:g}), max ulps {ul}")
-        if not e <= KERNEL_RTOL:
-            raise AssertionError(f"ppm_flux_y_fold {adj}: {e}")
-        ferrs.append(float(max((f_k[0] - f_p[0]).abs().max(),
-                               (f_k[1] - f_p[1]).abs().max())))
-    f_ms = median_ms(lambda: flux(h, hl, hr, face, d_p, d_m, v, dw=dw,
-                                  rem=rem, fold=True))
-    f_pms = median_ms(lambda: cppm.ppm_flux_plain(
-        h, hl, hr, face, d_p, d_m, v, dw, rem, cppm._DIR_Y, fold=True))
-    f_row = _kernel_row(max(ferrs), f_ms, f_pms, 4 * (7 * n + 4 * plane),
-                        FLOPS_PER_POINT["ppm_flux"] * n, shape)
-    log(f"[kernel] ppm_flux_y_fold adjust=True {shape}: kernel {f_ms:.4f} "
-        f"ms, plain {f_pms:.4f} ms, bound {f_row['bound_ms']:.4f} ms "
-        f"({f_row['bound_by']})")
+    f_row = _check_flux(
+        "ppm_flux_y_fold", shape,
+        lambda **kw: flux(h, hl, hr, face, d_p, d_m, v, fold=True, **kw),
+        lambda dw_, rem_: cppm.ppm_flux_plain(h, hl, hr, face, d_p, d_m, v,
+                                              dw_, rem_, cppm._DIR_Y,
+                                              fold=True),
+        dw, rem)
     after = (edges.fold_launches, flux.fold_launches, edges.launches,
              flux.launches)
     if not (after[0] > before[0] and after[1] > before[1]
@@ -665,8 +671,8 @@ def _check_remap(shape, dev, results, **form):
     nbytes = 4 * cols * (nf * npoly * nz0 + nz0 + nz1 + 2 * nf + nf * nz1)
     nflops = cols * (5 * (nz1 + 1) + nf * (
         (npoly + 1) * nz0 + (2 * (npoly - 1) + 3) * (nz1 + 1) + 3 * nz1))
-    row = _kernel_row(float((out_k - out_p).abs().max()), ms, pms, nbytes,
-                      nflops, shape)
+    row = _kernel_row(float((out_k - out_p).abs().max()), ms, d_ms, pms,
+                      nbytes, nflops, shape)
     what = (f"nf={nf} ({nz0}, {ny}, {nx})"
             + (f" to {nz1} layers" if nz1 != nz0 else "")
             + (" onto the source grid (all ties)" if form.get("ties") else ""))

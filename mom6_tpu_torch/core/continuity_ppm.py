@@ -154,6 +154,71 @@ def ppm_edges_plain(h, mask_t, h_min, monotonic, simple_2nd, direction,
                        p1_fn, p1_slp_fn)
 
 
+def ppm_edges_padded(h, mask_t, h_min, monotonic, simple_2nd, direction,
+                     fold=False):
+    """:func:`ppm_edges_plain` in the order of the CUDA kernel, for the
+    tests: ``h`` and the mask padded along ``direction`` with two halo
+    cells on each side (the wrap of torch.roll; with ``fold`` the rows
+    beyond the top are the x-mirrored top rows), each limited slope formed
+    once for the cells -1 .. n, then the edges from the three slopes and
+    the limiter.  Two slopes are special across the fold: the image of the
+    top row (position ny) is taken in its own orientation (minus and plus
+    neighbours swapped) and negated, and the halo cell -1, which is the
+    top row, has its fold image and not row 0 as its plus neighbour."""
+    if fold and direction != _DIR_Y:
+        raise ValueError("the fold is a boundary of the y direction")
+    ax = -1 if direction == _DIR_X else -2
+    n = h.shape[ax]
+    rows = torch.arange(-2, n + 2, device=h.device) % n
+    if fold:
+        rows, top = rows[:n + 2], torch.tensor([n - 1, n - 2],
+                                                device=h.device)
+
+    def pad(a):
+        p = a.index_select(ax, rows)
+        if fold:
+            p = torch.cat([p, a.index_select(ax, top).flip(-1)], dim=ax)
+        return p
+
+    def at(a, lo, hi):          # entries lo .. hi-1 along the axis
+        return a.narrow(ax, lo, hi - lo)
+
+    hp, mp = pad(h), pad(mask_t)
+    hc = at(hp, 2, n + 2)
+    if simple_2nd:
+        h_m = at(mp, 1, n + 1) * at(hp, 1, n + 1) \
+            + (1.0 - at(mp, 1, n + 1)) * hc
+        h_p = at(mp, 3, n + 3) * at(hp, 3, n + 3) \
+            + (1.0 - at(mp, 3, n + 3)) * hc
+        return 0.5 * (h_m + hc), 0.5 * (h_p + hc)
+    # positions -1 .. n: the centres and their minus and plus neighbours
+    c, m_c = at(hp, 1, n + 3), at(mp, 1, n + 3)
+    lo, m_lo = at(hp, 0, n + 2).clone(), at(mp, 0, n + 2).clone()
+    hi, m_hi = at(hp, 2, n + 4).clone(), at(mp, 2, n + 4).clone()
+    if fold:
+        # position -1, the top row: its plus neighbour is its own image
+        hi.select(ax, 0).copy_(h.select(ax, n - 1).flip(-1))
+        m_hi.select(ax, 0).copy_(mask_t.select(ax, n - 1).flip(-1))
+        # position n, the image: upside down, minus and plus swap
+        for a, b in ((lo, hi), (m_lo, m_hi)):
+            a_n = a.select(ax, n + 1).clone()
+            a.select(ax, n + 1).copy_(b.select(ax, n + 1))
+            b.select(ax, n + 1).copy_(a_n)
+    hm_all, hp_all, slp = _ppm_edges(c, lo, hi, m_lo, m_c, m_hi, h_min,
+                                     monotonic)
+    if fold:
+        slp.select(ax, n + 1).neg_()
+    one_sixth = 1.0 / 6.0
+    s_c = at(slp, 1, n + 1)
+    h_L = 0.5 * (at(hm_all, 1, n + 1) + hc) \
+        + one_sixth * (at(slp, 0, n) - s_c)
+    h_R = 0.5 * (at(hp_all, 1, n + 1) + hc) \
+        + one_sixth * (s_c - at(slp, 2, n + 2))
+    if monotonic:
+        return _ppm_limit_cw84(hc, h_L, h_R)
+    return _ppm_limit_pos(hc, h_L, h_R, h_min)
+
+
 def ppm_flux_plain(h, h_L, h_R, face, d_p, d_m, u, dw, rem, direction,
                    fold=False):
     _, p1_fn, _, p1_pair_fn = _shifts(direction, fold)

@@ -22,6 +22,8 @@ import sys
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 import jax.numpy as jnp
 
@@ -272,6 +274,88 @@ def test_full_continuity_parity(grids, topo, x_first, matched):
         m0 = float((T(x["h"]).double() * area).sum())
         m1 = float((got[0].double() * area).sum())
         assert abs(m1 - m0) <= 5e-6 * m0
+
+
+# The edge kernel's order (ppm_edges_padded: each slope once over a padded
+# array, the fold image's slope negated in its own orientation) against
+# ppm_edges_plain, to the bit: (direction, fold) and (monotonic,
+# simple_2nd) by name
+GEOMETRIES = {"x": (tc._DIR_X, False), "y wrap": (tc._DIR_Y, False),
+              "y fold": (tc._DIR_Y, True)}
+LIMITERS = {"pos": (False, False), "cw84": (True, False),
+            "simple2nd": (False, True)}
+# (nz, ny, nx): even and odd nx (under the fold the halfway column maps to
+# itself), nx = 8, ny = 2 and 3, a single column
+ORDER_SHAPES = [(3, 16, 24), (2, 7, 9), (2, 2, 8), (2, 3, 8), (1, 5, 1)]
+
+
+def _edge_inputs(shape, rng, dtype, land=0.2, floor=0.1, zeros=0.1):
+    """h around 500 m, smooth with some noise (so that the monotonic
+    limiter leaves many cells as they are), with a share of cells at the
+    1e-10 floor and of exact zeros of either sign, the top row at the floor
+    on a third of the columns; a 0/1 mask with land on the fold line."""
+    nz, ny, nx = shape
+    j, i = np.meshgrid(np.arange(ny), np.arange(nx), indexing="ij")
+    phase = rng.uniform(0, 2 * np.pi, (nz, 1, 1))
+    h = 500.0 + 100.0 * np.sin(0.7 * j + 0.45 * i + phase) \
+        + 3.0 * rng.standard_normal(shape)
+    h[rng.uniform(0, 1, shape) < floor] = 1e-10
+    h[rng.uniform(0, 1, shape) < zeros] = 0.0
+    h[rng.uniform(0, 1, shape) < zeros] = -0.0
+    h[:, -1, : max(1, nx // 3)] = 1e-10
+    m = (rng.uniform(0, 1, (ny, nx)) >= land).astype(float)
+    m[-1, nx // 2] = 0.0
+    return torch.tensor(h, dtype=dtype), torch.tensor(m, dtype=dtype)
+
+
+def _order_is_bitwise(h, m, geometry, limiter):
+    d, fold = GEOMETRIES[geometry]
+    mono, s2 = LIMITERS[limiter]
+    want = tc.ppm_edges_plain(h, m, 1e-10, mono, s2, d, fold)
+    got = tc.ppm_edges_padded(h, m, 1e-10, mono, s2, d, fold)
+    return all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("limiter", list(LIMITERS))
+@pytest.mark.parametrize("geometry", list(GEOMETRIES))
+def test_edges_in_the_kernels_order_are_bitwise(geometry, limiter, dtype):
+    """The CUDA edge kernel's order equals the plain version to the bit:
+    land at the fold, h at the 1e-10 floor, signed zeros, and the shapes
+    of ORDER_SHAPES, where the fold's two special slopes (the negated
+    image of the top row, and the top row seen as cell -1 of row 0) meet
+    in one tile at ny = 2 and 3."""
+    rng = np.random.default_rng(11)
+    for shape in ORDER_SHAPES:
+        h, m = _edge_inputs(shape, rng, dtype)
+        assert _order_is_bitwise(h, m, geometry, limiter), shape
+
+
+def test_edges_order_differs_without_the_fold_slopes():
+    """The fold's special slopes matter: the wrap's order on the fold
+    differs from the fold's plain version on the top rows."""
+    rng = np.random.default_rng(12)
+    h, m = _edge_inputs((2, 7, 9), rng, torch.float64, land=0.0)
+    want = tc.ppm_edges_plain(h, m, 1e-10, False, False, tc._DIR_Y, True)
+    wrap = tc.ppm_edges_padded(h, m, 1e-10, False, False, tc._DIR_Y, False)
+    assert not torch.equal(want[1][:, -1], wrap[1][:, -1])
+    assert not torch.equal(want[0][:, 0], wrap[0][:, 0])
+
+
+@settings(max_examples=40, deadline=None, derandomize=True)
+@given(nz=st.integers(1, 3), ny=st.integers(2, 11), nx=st.integers(1, 11),
+       seed=st.integers(0, 2**31 - 1), land=st.floats(0.0, 0.6),
+       zeros=st.floats(0.0, 0.5),
+       geometry=st.sampled_from(list(GEOMETRIES)),
+       limiter=st.sampled_from(list(LIMITERS)), f64=st.booleans())
+def test_edges_order_is_bitwise_on_random_fields(nz, ny, nx, seed, land,
+                                                 zeros, geometry, limiter,
+                                                 f64):
+    rng = np.random.default_rng(seed)
+    h, m = _edge_inputs((nz, ny, nx), rng,
+                        torch.float64 if f64 else torch.float32, land=land,
+                        zeros=zeros)
+    assert _order_is_bitwise(h, m, geometry, limiter)
 
 
 def test_kernel_wrappers_have_no_fallback_for_other_devices():

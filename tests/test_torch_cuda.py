@@ -8,9 +8,10 @@ the CUDA toolkit:
 
 The kernels perform the plain versions' operations in the same order
 (nvcc --fmad=false), so float32 and float64 results are expected to be
-bitwise equal; the older assertions allow 1e-6 (f32) and 1e-13 (f64) of
-the field's max-abs for a division the card's libraries might round
-apart, the Thomas solve's and the remap's newer ones demand equality.
+bitwise equal; the PPM flux's assertions allow 1e-6 (f32) and 1e-13
+(f64) of the field's max-abs for a division the card's libraries might
+round apart, those of the Thomas solve, the remap and the PPM edges
+demand equality.
 """
 
 import numpy as np
@@ -143,7 +144,7 @@ def test_ppm_kernels_match_plain(cuda, dtype, direction, variant):
         d_m = p.dt * torch.roll(G.IdyT, -1, -2)
     hl, hr = edges(h, G.mask2dT, 1e-10, mono, s2)
     pl, pr = cppm.ppm_edges_plain(h, G.mask2dT, 1e-10, mono, s2, d)
-    assert max(_rel(hl, pl), _rel(hr, pr)) <= TOL[dtype]
+    assert torch.equal(hl, pl) and torch.equal(hr, pr)
     for kw in ({}, dict(dw=dw, rem=rem)):
         got = flux(h, hl, hr, face, d_p, d_m, u, **kw)
         want = cppm.ppm_flux_plain(h, hl, hr, face, d_p, d_m, u,
@@ -176,7 +177,7 @@ def test_ppm_fold_kernels_match_plain(cuda, dtype, variant, nx):
     hl, hr = cppm.merid_edges(h, G.mask2dT, 1e-10, mono, s2, fold=True)
     want_l, want_r = cppm.ppm_edges_plain(h, G.mask2dT, 1e-10, mono, s2, 1,
                                           fold=True)
-    assert max(_rel(hl, want_l), _rel(hr, want_r)) <= TOL[dtype]
+    assert torch.equal(hl, want_l) and torch.equal(hr, want_r)
     # and the fold differs from the wrap where it should: the top row
     _, wrap_r = cppm.ppm_edges_plain(h, G.mask2dT, 1e-10, mono, s2, 1)
     assert not torch.equal(wrap_r[:, -1], want_r[:, -1])
@@ -189,6 +190,64 @@ def test_ppm_fold_kernels_match_plain(cuda, dtype, variant, nx):
     assert cppm.merid_edges.fold_launches == n_e + 1
     assert cppm.merid_flux.fold_launches == n_f + 2
     assert (cppm.merid_edges.launches, cppm.merid_flux.launches) == (w_e, w_f)
+
+
+# (nz, ny, nx) of the edge kernel's tiles (x: 128 cells of a row; y: 32
+# columns by 16 rows): smaller than a tile, nz = 1, ny = 2 and 3, sizes
+# that are not multiples of a tile, ny a multiple of it (the fold image
+# of the top row is the last slope of a tile), and a plane large enough
+# that a block walks several layers (x 8, y 4 on an H100) with a partial
+# last chunk
+EDGE_SHAPES = [(1, 5, 7), (3, 33, 130), (2, 2, 3), (4, 3, 200),
+               (2, 64, 33), (5, 70, 257), (25, 1000, 1000)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("geometry", ["x", "y wrap", "y fold"])
+@pytest.mark.parametrize("shape", EDGE_SHAPES)
+def test_ppm_edges_kernel_tiles_are_bitwise(cuda, dtype, geometry, shape):
+    """Every limiter at 0 ulps against the plain version on the card: a
+    smooth field with noise, cells at the 1e-10 floor, signed zeros, land
+    (on the fold line too); one launch a call, counted where it belongs."""
+    nz, ny, nx = shape
+    rng = np.random.default_rng(nz * ny + nx)
+    j, i = np.meshgrid(np.arange(ny), np.arange(nx), indexing="ij")
+    h = 500.0 + 100.0 * np.sin(0.7 * j + 0.45 * i
+                               + rng.uniform(0, 6.3, (nz, 1, 1)))
+    h = h + 3.0 * rng.standard_normal(shape)
+    h[rng.uniform(0, 1, shape) < 0.1] = 1e-10
+    h[rng.uniform(0, 1, shape) < 0.05] = 0.0
+    h[rng.uniform(0, 1, shape) < 0.05] = -0.0
+    m = (rng.uniform(0, 1, (ny, nx)) >= 0.2).astype(float)
+    m[-1, nx // 2] = 0.0
+    h, m = (torch.tensor(a, dtype=dtype, device=cuda) for a in (h, m))
+    d, fold = (0, False) if geometry == "x" else (1, geometry == "y fold")
+    wrapper = cppm.zonal_edges if d == 0 else cppm.merid_edges
+    counter = "fold_launches" if fold else "launches"
+    for mono, s2 in ((False, False), (True, False), (False, True)):
+        n0 = getattr(wrapper, counter)
+        got = (cppm.zonal_edges(h, m, 1e-10, mono, s2) if d == 0 else
+               cppm.merid_edges(h, m, 1e-10, mono, s2, fold))
+        assert getattr(wrapper, counter) == n0 + 1
+        want = cppm.ppm_edges_plain(h, m, 1e-10, mono, s2, d, fold)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_ppm_edges_kernel_refuses_too_many_layers(cuda):
+    """More layers than the grid's y dimension takes (65,535) are refused
+    before any launch and the wrappers raise, they do not fall back; the
+    card stays usable."""
+    h = torch.ones((65536, 2, 3), device=cuda)
+    m = torch.ones((2, 3), device=cuda)
+    with pytest.raises(RuntimeError, match="zonal_edges"):
+        cppm.zonal_edges(h, m, 1e-10)
+    with pytest.raises(RuntimeError, match="merid_edges"):
+        cppm.merid_edges(h, m, 1e-10, fold=True)
+    e = h[:4] * torch.arange(1.0, 4.0, device=cuda)
+    got = cppm.merid_edges(e, m, 1e-10, fold=True)
+    want = cppm.ppm_edges_plain(e, m, 1e-10, False, False, 1, fold=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_fold_kernels_reject_the_x_direction(cuda):
