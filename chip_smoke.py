@@ -15,8 +15,8 @@ runs one physics gate of tests/torch_gates.py on the card and prints its
 record and launch counts as one JSON line (phase 10 starts these).
 
 Phases (each prints its own lines; any failure raises and exits non-zero),
-run in the order 1-4, 6-8, the first half of 12, then 5, 9, 11 and the
-rest of 12 while the gates of phase 10 run in processes of their own
+run in the order 1-4, 6-8, the first half of 12, 13, then 5, 9, 11 and
+the rest of 12 while the gates of phase 10 run in processes of their own
 (nothing timed runs beside the gates):
 
 1. device: requires CUDA; prints the card's name and power limit;
@@ -28,13 +28,16 @@ rest of 12 while the gates of phase 10 run in processes of their own
    the kernel's and the plain version's times and the card's bound for the
    same work: the Thomas solve and the PPM passes at the global path's
    (32, 400, 720), the thermo slice's (32, 280, 360), the double gyre's
-   (8, 280, 360) and at (75, 270, 360); the Thomas solve as the vertical
+   (8, 280, 360), at (75, 270, 360) and at the shapes of the open-boundary
+   run directories (OBC_KERNEL_SHAPES); the Thomas solve as the vertical
    diffusion calls it (coefficients (32, 1, 400, 720) shared by the two
    right-hand sides of a transposed (2, 32, 400, 720) tensor, and
-   (32, 1, 280, 360) by the three of T, S and the age); the ALE remap at
-   (nf=2 and 1, 32, 400, 720), (nf=3, 2 and 1, 32, 280, 360) and (nf=3 and
-   2, 75, 270, 360), from 32 to 40 layers, with five fields, and onto the
-   source grid itself (every interface ties); the y passes across the
+   (32, 1, 280, 360) by the three of T, S and the age, and the diabatic
+   solve of T and S on tidal_bay (3, 1, 24, 48) and dome (14, 1, 32, 48));
+   the ALE remap at
+   (nf=2 and 1, 32, 400, 720), (nf=3, 2 and 1, 32, 280, 360), (nf=3 and
+   2, 75, 270, 360) and dome's (nf=2 and 1, 14, 32, 48), from 32 to 40
+   layers, with five fields, and onto the source grid itself (every interface ties); the y passes across the
    tripolar fold on the half-degree global grid at (32, 400, 720) and on a
    polar cap at (7, 33, 45).  Every kernel must equal its plain version
    to the bit; each kernel's own device time (torch.profiler) is
@@ -82,10 +85,16 @@ rest of 12 while the gates of phase 10 run in processes of their own
    salt to 1e-12 relative, KE and APE to 1e-9), and the two free runs
    to the same tolerances;
 10. the physics gates: the twelve cases of tests/test_analytic_parity.py
-   and tests/test_pf_pierced.py, and five of tests/test_user_configs.py
+   and tests/test_pf_pierced.py, ten of tests/test_user_configs.py
    (the Phillips jet balanced, scm_kpp mixing under wind, Neverworld's
    topography and stability, the hurricane's wind and its cold wake right
-   of the track), through the port in float32 at their own size and
+   of the track, supercritical stepping stably, the Kelvin wave trapped at
+   the coast, the shelf wave trapped on the shelf, DOME's inflow entering
+   and descending and its plume turning west after 2 days), the tidal bay
+   pumped by its file data (tests/test_obc_file_reservoir.py), tc3's
+   radiation against a closed twin (tests/test_tc_ladder.py) and Flather
+   and Orlanski radiating waves out (tests/test_obc.py), through the port
+   in float32 at their own size and
    length with their own asserts (tests/torch_gates.py), four at a time,
    each in its own process on the card (``--gate``); one line per case
    with what it measured, the analytic value and the seconds;
@@ -106,10 +115,14 @@ rest of 12 while the gates of phase 10 run in processes of their own
    again, and one stats call at 720x400x32 is timed on the card
    (compute_stats_device) and on the host (compute_stats).  Then, beside
    the gates: rho_basin and tracer_batch in float64, 2 + 2 cycles
-   (--restart-in) equal to 4 straight ones to the bit; the nine run
-   directories of the idealized user cases for 2 cycles in float64 on the
-   card and on the CPU (--device cpu), ocean.stats to 1e-12 (mass, heat,
-   salt) and 1e-9 (KE, APE); seasonal_gyre for half a day in float32
+   (--restart-in) equal to 4 straight ones to the bit, and tidal_bay
+   (its tracer reservoirs carried; a stats line a cycle, so that both runs
+   take the segment data at the same times); the nine run directories of
+   the idealized user cases and the six with open boundaries (kelvin,
+   shelfwave, supercritical, tidal_bay, dome, tc3) for 2 cycles in
+   float64 on the card and on the CPU (--device cpu), ocean.stats to
+   1e-12 (mass, heat, salt) and 1e-9 (KE, APE), the restart fields to
+   1e-10 of max-abs; seasonal_gyre for half a day in float32
    through its forcing file, whose wind changes from segment to segment.
    The gates of tests/test_user_configs.py on those run directories are
    in phase 10.  The diag_table path, timed alone after the
@@ -129,7 +142,13 @@ rest of 12 while the gates of phase 10 run in processes of their own
    golden tolerances.  Phase 3 checks the Thomas kernel at wave_speed's
    (nz-1) shapes of both, (19, 100, 180) and (31, 400, 720), float32 and
    float64 bitwise against its plain version;
-13. a JSON line of the kernels, then the result line.
+13. the open boundaries: each of the six run directories above as
+   committed in float32 on the card in this process, 10 thermo cycles
+   with the provider's segment data, their launches held exactly to
+   ``obc_cycle`` (tc3's with set_bt_cont's extra x and y edge launch a
+   step, dome's with the diabatic solve and the z* remaps), the wall ms
+   per cycle and, from the profiler, the device's idle share of a cycle;
+14. a JSON line of the kernels, then the result line.
 
 Long output (the ptxas report, the profiler tables) goes to
 chip_smoke_out/ beside this script.
@@ -219,11 +238,15 @@ SMALL_GLOBAL = ("NIGLOBAL = 32\nNJGLOBAL = 24\nNK = 5\nUSE_KPP = False\n"
 # reported in the JSON line), the double gyre's, and a deep (OM4-like)
 # column
 KERNEL_SHAPES = (GLOBAL_SHAPE, (32, 280, 360), (8, 280, 360), (75, 270, 360))
+# the (nz, ny, nx) of the open-boundary run directories: kelvin and
+# shelfwave, supercritical, tidal_bay, dome, tc3 (one layer where nz = 1)
+OBC_KERNEL_SHAPES = ((1, 32, 64), (1, 20, 60), (3, 24, 48), (14, 32, 48),
+                     (10, 8, 10))
 # (nf, nz0, ny, nx) of the remap: T and S, then u or v, on the global and
 # the thermo path; T and S of a deep column
 REMAP_SHAPES = ((2, 32, 400, 720), (1, 32, 400, 720), (2, 32, 280, 360),
                 (1, 32, 280, 360), (2, 75, 270, 360), (3, 32, 280, 360),
-                (3, 75, 270, 360))
+                (3, 75, 270, 360), (2, 14, 32, 48), (1, 14, 32, 48))
 # more forms of the remap, (nf, nz0, ny, nx) and how the target grid is
 # made: more target layers than source layers, five fields (two passes of
 # the kernel), and a target grid equal to the source grid
@@ -231,8 +254,10 @@ REMAP_FORMS = (((2, 32, 400, 720), dict(nz1=40)),
                ((5, 32, 280, 360), {}),
                ((2, 32, 400, 720), dict(ties=True)))
 # the Thomas solve as tracers/vert_diff.py calls it: (n_tr, nz, ny, nx) of
-# T and S on the global path, of T, S and the age on the full-physics path
-SHARED_TRIDIAG = ((2,) + GLOBAL_SHAPE, (3, 32, 280, 360))
+# T and S on the global path, of T, S and the age on the full-physics path,
+# of T and S on tidal_bay and dome
+SHARED_TRIDIAG = ((2,) + GLOBAL_SHAPE, (3, 32, 280, 360), (2, 3, 24, 48),
+                  (2, 14, 32, 48))
 # the shape whose numbers a kernel's row of the JSON line carries: that
 # of the path that launches it
 ROW_SHAPE = {"ppm_edges_y": (32, 280, 360), "ppm_flux_y": (32, 280, 360)}
@@ -278,6 +303,34 @@ def table_post(n_dyn):
     c = fold_cycle(n_dyn)
     extra = {"tridiag": 10, "remap": TABLE_Z_FIELDS}
     return {k: c[k] + PER_FOLD_STEP[k] + extra.get(k, 0) for k in c}
+
+
+def obc_cycle(n_dyn, bt_cont=False, thermo=None):
+    """Launches of one thermo cycle of a configuration without the fold:
+    ``n_dyn`` split steps, each with BT_cont one more x and y edge
+    reconstruction (set_bt_cont); with ``thermo`` ("layer" or "zstar")
+    the diabatic column solve and, in z*, the remaps of the cell fields,
+    u and v."""
+    per = dict(PER_STEP)
+    if bt_cont:
+        per["ppm_edges_x"] += 1
+        per["ppm_edges_y"] += 1
+    out = {k: n_dyn * c for k, c in per.items()}
+    if thermo is not None:
+        out["tridiag"] += PER_THERMO["tridiag"]
+        if thermo == "zstar":
+            out["remap"] += PER_THERMO["remap"]
+    return out
+
+
+# the run directories with open boundaries: (baroclinic steps a thermo
+# cycle, BT_cont, thermodynamics) of their MOM_input
+OBC_CONFIGS = {"kelvin": (1, False, None), "shelfwave": (1, False, None),
+               "supercritical": (1, False, None),
+               "tidal_bay": (2, False, "layer"), "dome": (2, False, "zstar"),
+               "tc3": (1, True, None)}
+# thermo cycles of each in float32 on the card, timed and counted
+N_OBC_CYCLES = 10
 
 
 # per thermo cycle of the global path (6 baroclinic steps)
@@ -861,7 +914,7 @@ def phase_kernels(dev, ms):
     branch on the global model ``ms``'s grid and on a polar cap with an
     odd nx."""
     results = {}
-    for shape in KERNEL_SHAPES:
+    for shape in KERNEL_SHAPES + OBC_KERNEL_SHAPES:
         _check_tridiag_ppm(shape, dev, results)
         torch.cuda.empty_cache()
     _check_fold(ms.grid, ms.params.dyn.dt, _noisy_thickness(ms.state.h, 5),
@@ -1739,6 +1792,70 @@ def phase_tracer_batch(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 13: the open boundaries in this process
+
+def _obc_cycler(ms):
+    """(state, cycle index) -> the state a thermo cycle later, with the
+    forcing provider's data at the cycle's midpoint where there is one."""
+    dt_cycle = ms.params.dyn.dt * ms.params.n_dyn_per_thermo
+
+    def cycle(st, k):
+        f = ms.forcing if ms.forcing_provider is None \
+            else ms.forcing_provider((k + 0.5) * dt_cycle)
+        with torch.inference_mode():
+            return step_mom(st, f, ms.grid, ms.vgrid, ms.params)
+    return cycle
+
+
+def phase_obc(dev):
+    """Each run directory with open boundaries as committed, in float32
+    on the card: one cycle to warm up, then N_OBC_CYCLES cycles with their
+    launches held exactly to ``obc_cycle`` and their wall ms per cycle
+    (host clock, synchronised), then one cycle under the profiler (device
+    time and idle share).  Returns the launches of the tc3 and dome runs."""
+    out = {}
+    for name, (n_dyn, bt_cont, thermo) in OBC_CONFIGS.items():
+        ms = build_model_from_params(ParamFile([os.path.join(
+            TREE, "configs", name, "MOM_input")]), device=dev)
+        p = ms.params
+        got = (p.n_dyn_per_thermo, p.dyn.bt.use_bt_cont,
+               None if not p.thermo_enabled else
+               ("layer" if p.ale.mode == "LAYER" else p.ale.mode.lower()))
+        if p.obc is None or got != (n_dyn, bt_cont, thermo):
+            raise AssertionError(f"{name}: built {got}, obc {p.obc}")
+        cycle = _obc_cycler(ms)
+        st = cycle(ms.state, 0)
+        torch.cuda.synchronize()
+        reset_kernel_launches()
+        t0 = time.time()
+        for k in range(1, N_OBC_CYCLES + 1):
+            st = cycle(st, k)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.time() - t0) / N_OBC_CYCLES
+        counts = kernel_launches()
+        _check_counts(counts, obc_cycle(n_dyn, bt_cont, thermo),
+                      N_OBC_CYCLES, name)
+        for k in ("h", "u", "v"):
+            if not bool(torch.isfinite(getattr(st, k)).all()):
+                raise AssertionError(f"{name}: non-finite {k}")
+        dev_ms, n_kern, blocked = _profile(
+            lambda s: cycle(s, N_OBC_CYCLES + 1), st, f"obc_{name}")
+        G = ms.grid
+        log(f"[obc] {name} {G.nx}x{G.ny}x{ms.vgrid.nz} float32, "
+            f"{n_dyn} split step(s) a cycle (bt nstep {p.dyn.bt.nstep}), "
+            f"BT_cont {bt_cont}, thermo {thermo}: {wall:.2f} wall ms per "
+            f"cycle over {N_OBC_CYCLES} cycles (host clock, synchronised); "
+            f"profiler, one cycle: {n_kern} kernels, {dev_ms:.3f} ms of "
+            f"device time, device idle {100.0 * (1.0 - dev_ms / wall):.1f}%"
+            f" of the cycle; host blocked on a full command buffer "
+            f"{blocked:.3f} ms; hand-written kernel launches per cycle "
+            f"{ {k: v // N_OBC_CYCLES for k, v in counts.items()} }")
+        if name in ("tc3", "dome"):
+            out[f"obc_{name}"] = counts
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 12: the port's command line, python -m mom6_tpu_torch.drivers.solo
 
 SOLO_OUT = os.path.join(OUT, "solo")
@@ -1746,21 +1863,23 @@ SOLO_OUT = os.path.join(OUT, "solo")
 NEW_CONFIGS = ("dome2d_overflow", "dumbbell", "hurricane", "neverworld",
                "phillips_channel", "rossby_front", "scm_kpp", "seamount",
                "seasonal_gyre")
-# split 2 + 2 against 4 straight thermo cycles (both dt_therm 1800 s)
-SPLIT_CONFIGS = ("rho_basin", "tracer_batch")
+# split 2 + 2 against 4 straight thermo cycles; both runs write a stats
+# line every cycle (tidal_bay takes its segment data at each stats
+# segment's midpoint)
+SPLIT_CONFIGS = ("rho_basin", "tracer_batch", "tidal_bay")
 N_SOLO_PROCS = 6            # CLI processes at once in the solo checks
 
 
 def _solo_dir(name, sub, override="", files=()):
-    """A fresh copy of configs/<name>/MOM_input and of ``files`` (paths in
-    the checkout) under chip_smoke_out/solo (seasonal_gyre with its
-    forcing file from the port's writer)."""
+    """A fresh copy of configs/<name> (with its data files) and of
+    ``files`` (paths in the checkout) under chip_smoke_out/solo
+    (seasonal_gyre with its forcing file from the port's writer)."""
     import shutil
     from mom6_tpu_torch.drivers.user_cases import write_seasonal_forcing
     d = os.path.join(SOLO_OUT, sub, name)
     shutil.rmtree(d, ignore_errors=True)
-    os.makedirs(d)
-    for f in (os.path.join("configs", name, "MOM_input"),) + tuple(files):
+    shutil.copytree(os.path.join(TREE, "configs", name), d)
+    for f in files:
         shutil.copy(os.path.join(TREE, f), d)
     if name == "seasonal_gyre":
         write_seasonal_forcing(os.path.join(d, "forcing_monthly.nc"))
@@ -1914,11 +2033,6 @@ def phase_solo_global(dev, ms):
     return launches
 
 
-GLOBAL_2DEG_FILES = tuple(os.path.join("configs", "global_2deg", f)
-                          for f in ("ocean_hgrid.nc", "ocean_topog.nc",
-                                    "diag_table"))
-
-
 def _table_run(d, days, n_dyn, what):
     """Read a diag_table run of the CLI: its ocean.cputime, its launches
     held to its cycles and posts exactly, ocean_diags.nc's fields finite
@@ -2041,8 +2155,7 @@ def phase_solo_table(dev, ms):
     two runs."""
     table = (os.path.join("configs", "global_2deg", "diag_table"),)
     d_half = _solo_dir("global_half_deg", "table", files=table)
-    d_2deg = _solo_dir("global_2deg", "card", "DOUBLE_PRECISION = True\n",
-                       files=GLOBAL_2DEG_FILES)
+    d_2deg = _solo_dir("global_2deg", "card", "DOUBLE_PRECISION = True\n")
     secs = _run_solo([(d_half, ["--days", "1"])], 1)
     secs.update(_run_solo([(d_2deg, ["--days", "1"])], 1))
     out = {}
@@ -2096,8 +2209,7 @@ def _diag_differences(a, b, table, h_wet=1e-3):
 def start_table_cpu():
     """Start configs/global_2deg for a day in float64 on the CPU
     (--device cpu), the reference of phase_solo_table_cpu."""
-    cpu = _solo_dir("global_2deg", "cpu", "DOUBLE_PRECISION = True\n",
-                    files=GLOBAL_2DEG_FILES)
+    cpu = _solo_dir("global_2deg", "cpu", "DOUBLE_PRECISION = True\n")
     return cpu, _start_solo(cpu, ["--days", "1", "--device", "cpu"])
 
 
@@ -2138,24 +2250,35 @@ def phase_solo_table_cpu(started):
     return fields
 
 
+def _cycle_days(name, n):
+    """``n`` thermo cycles of configs/<name> in days, as the CLI's --days
+    argument."""
+    pf = ParamFile([os.path.join(TREE, "configs", name, "MOM_input")])
+    dt = pf.get("DT", float)
+    return repr(n * pf.get("DT_THERM", float, default=dt) / 86400.0)
+
+
 def phase_solo_runs(dev):
-    """The split runs (rho_basin, tracer_batch in float64, 2 + 2 against 4
-    straight cycles, on the card), the nine new run directories for 2
-    cycles in float64 on the card and on the CPU, and seasonal_gyre for
-    half a day in float32 through its forcing file."""
+    """The split runs (rho_basin, tracer_batch and tidal_bay in float64,
+    2 + 2 against 4 straight cycles, on the card), the nine new run
+    directories and the six with open boundaries for 2 cycles in float64
+    on the card and on the CPU, and seasonal_gyre for half a day in
+    float32 through its forcing file."""
     from mom6_tpu_torch.io.netcdf import read_nc
     from mom6_tpu_torch.framework.restart import restart_differences
     f64 = "DOUBLE_PRECISION = True\n"
-    two, four = repr(2 * 1800.0 / 86400.0), repr(4 * 1800.0 / 86400.0)
     first = []
+    split_ov = {n: f"{f64}ENERGYSAVEDAYS = {_cycle_days(n, 1)}\n"
+                for n in SPLIT_CONFIGS}
     for name in SPLIT_CONFIGS:
-        first += [(_solo_dir(name, "straight", f64), ["--days", four]),
-                  (_solo_dir(name, "first", f64), ["--days", two])]
+        ov = split_ov[name]
+        first += [(_solo_dir(name, "straight", ov),
+                   ["--days", _cycle_days(name, 4)]),
+                  (_solo_dir(name, "first", ov),
+                   ["--days", _cycle_days(name, 2)])]
     pairs = {}
-    for name in NEW_CONFIGS:
-        pf = ParamFile([os.path.join(TREE, "configs", name, "MOM_input")])
-        dt = pf.get("DT", float)
-        days = repr(2 * pf.get("DT_THERM", float, default=dt) / 86400.0)
+    for name in NEW_CONFIGS + tuple(OBC_CONFIGS):
+        days = _cycle_days(name, 2)
         card = _solo_dir(name, "card", f64)
         cpu = _solo_dir(name, "cpu", f64)
         pairs[name] = (card, cpu)
@@ -2166,12 +2289,13 @@ def phase_solo_runs(dev):
     secs = _run_solo(first)
     second = []
     for name in SPLIT_CONFIGS:
-        d = _solo_dir(name, "second", f64)
+        d = _solo_dir(name, "second", split_ov[name])
         import shutil
         shutil.copy(os.path.join(SOLO_OUT, "first", name, "RESTART",
                                  "ocean_solo.res"), d)
-        second.append((d, ["--days", two, "--restart-in", os.path.join(
-            SOLO_OUT, "first", name, "MOM.res.nc")]))
+        second.append((d, ["--days", _cycle_days(name, 2), "--restart-in",
+                           os.path.join(SOLO_OUT, "first", name,
+                                        "MOM.res.nc")]))
     secs.update(_run_solo(second))
     for name in SPLIT_CONFIGS:
         a = read_nc(os.path.join(SOLO_OUT, "straight", name, "MOM.res.nc"))
@@ -2204,12 +2328,17 @@ def phase_solo_runs(dev):
             raise AssertionError(f"{name} card against CPU: restart fields "
                                  f"{errs['fields']}")
         worst[name] = errs
+        extra = ""
+        if name in OBC_CONFIGS:
+            wall = _solo_cputime(card)[0]
+            extra = (f"; ocean.cputime on the card: {1e3 * wall / 2:.1f} "
+                     f"wall ms per cycle (beside the gates)")
         log(f"[solo] {name} f64, 2 cycles through the CLI, card against "
             f"CPU: relative differences of ocean.stats and of the restart "
             f"fields (of max-abs; T, S where a layer holds water, u, v on "
             f"faces that do) {errs}; "
             f"{secs[card]:.1f} s on the card, {secs[cpu]:.1f} s on the CPU "
-            f"(each with its process)")
+            f"(each with its process){extra}")
     lines = _solo_stats(sg)
     if len(lines) != 4 or not all(math.isfinite(v) for r in lines
                                   for v in r.values()):
@@ -2235,7 +2364,8 @@ def phase_solo_runs(dev):
 # the gates by their CPU time, longest first (tests/test_torch_analytic.py)
 GATE_ORDER = ("kpp_convective_deepening",
               "phillips_baroclinic_instability_growth",
-              "hurricane_cold_wake",
+              "dome_plume_turns_west", "tidal_bay_file_forcing",
+              "hurricane_cold_wake", "kelvin_wave_trapped_at_coast",
               "epbl_convective_deepening", "lock_exchange_benjamin_front",
               "ekman_spiral_finite_depth", "stommel_gyre_sverdrup_balance")
 
@@ -2386,6 +2516,7 @@ def main():
     counts["solo_global_half_deg"] = timed("solo global_half_deg",
                                            phase_solo_global, dev, ms)
     counts.update(timed("solo table", phase_solo_table, dev, ms))
+    counts.update(timed("obc", phase_obc, dev))
     del ms
     torch.cuda.empty_cache()
     # the gates' processes run beside the checks that follow (nothing after

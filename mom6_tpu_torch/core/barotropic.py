@@ -9,9 +9,17 @@ order, then the eta corrector with the new transports.  The reference's
 trailing odd substep) is a Python loop here; the averaging weights and
 the order parity come from :func:`_weights` in float64 numpy.
 
+Transports are linear, Datu*ubt + uhbt0, or with ``use_bt_cont`` and a
+``BTCont`` the response curves of the layer continuity's PPM
+reconstruction (find_uhbt), offset to agree with the layer transports
+at the initial velocities.  With ``obc`` the Flather condition acts on
+the barotropic velocities inside every substep and the exterior strip's
+eta is held at its exterior value (apply_velocity_OBCs); SPECIFIED faces
+are clamped to their depth-mean inflow.
+
 Not ported (each raises NotImplementedError when switched on): the
-nonlinear BT_cont transports, open boundaries, the wide-halo subcycle,
-the dynamic surface pressure and scalar self-attraction and loading.
+wide-halo subcycle, the dynamic surface pressure and scalar
+self-attraction and loading.
 """
 
 from __future__ import annotations
@@ -22,7 +30,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from mom6_tpu_torch.framework.arith import vsum
+from mom6_tpu_torch.core.continuity_ppm import find_uhbt, find_vhbt
+from mom6_tpu_torch.framework.arith import rdiv, vsum
 from mom6_tpu_torch.framework.stencil import im1, ip1, jm1, jm1_s0, jp1
 
 __all__ = ["BTParams", "BTOut", "btstep", "set_dtbt", "btcalc",
@@ -35,7 +44,7 @@ class BTParams:
     nfilter: int                # extra filter substeps
     bebt: float = 0.2           # backward weighting of eta in the PF
     dgeo_de: float = 1.0        # geopotential over-relaxation
-    use_bt_cont: bool = False   # nonlinear transport curves (not ported)
+    use_bt_cont: bool = False   # nonlinear transport curves (BT_cont)
     lin_drag: float = 0.0       # linear BT drag piston velocity [m s-1]
     cdrag: float = 0.0          # quadratic BT drag coefficient
     sal_scalar: float = 0.0     # scalar SAL (not ported)
@@ -70,17 +79,26 @@ class BTFields(NamedTuple):
     cor_ref_v: torch.Tensor
     rem_u: torch.Tensor
     rem_v: torch.Tensor
-    uhbt0: torch.Tensor
-    vhbt0: torch.Tensor
     mask_u: torch.Tensor
     mask_v: torch.Tensor
     IareaT: torch.Tensor
     IdxCu: torch.Tensor
     IdyCv: torch.Tensor
-    Datu: torch.Tensor
-    Datv: torch.Tensor
     drag_u: Optional[torch.Tensor] = None
     drag_v: Optional[torch.Tensor] = None
+    # the open boundaries inside the subcycle, or None: the Flather faces
+    # (with the SPECIFIED faces), the exterior strip, the face signs, the
+    # exterior data and the per-face wave speeds (0 on SPECIFIED faces)
+    obc_mask_u: Optional[torch.Tensor] = None
+    obc_mask_v: Optional[torch.Tensor] = None
+    obc_mask_cell: Optional[torch.Tensor] = None
+    obc_sign_u: Optional[torch.Tensor] = None
+    obc_sign_v: Optional[torch.Tensor] = None
+    obc_uvel_ext: Optional[torch.Tensor] = None
+    obc_vvel_ext: Optional[torch.Tensor] = None
+    obc_eta_ext: Optional[torch.Tensor] = None
+    obc_c_fl_u: Optional[torch.Tensor] = None
+    obc_c_fl_v: Optional[torch.Tensor] = None
 
 
 def _np(t):
@@ -183,9 +201,10 @@ def dense_kit(G):
                 jm1_q=lambda a: jm1_s0(a, kh))
 
 
-def _make_half_step(F: BTFields, consts: dict, kit: dict):
+def _make_half_step(F: BTFields, consts: dict, kit: dict, transports):
     """The forward-backward substep (the body of the reference's substep
-    loop), with a static u/v update order per call."""
+    loop), with a static u/v update order per call; ``transports(ubt,
+    vbt)`` gives the barotropic transports of the velocities."""
     dtbt = consts["dtbt"]
     bebt = consts["bebt"]
     geo = consts["geo"]
@@ -218,6 +237,26 @@ def _make_half_step(F: BTFields, consts: dict, kit: dict):
         x = F.rem_v * x
         return (x * F.drag_v if F.drag_v is not None else x) * F.mask_v
 
+    if F.obc_mask_u is not None:
+        def obc_bt(ubt, vbt, eta):
+            eta_u = torch.where(F.obc_sign_u >= 0.0, eta, ip1_(eta))
+            eta_v = torch.where(F.obc_sign_v >= 0.0, eta, jp1_h(eta))
+            u_fl = F.obc_uvel_ext + F.obc_sign_u * F.obc_c_fl_u \
+                * (eta_u - F.obc_eta_ext)
+            v_fl = F.obc_vvel_ext + F.obc_sign_v * F.obc_c_fl_v \
+                * (eta_v - F.obc_eta_ext)
+            return (ubt * (1.0 - F.obc_mask_u) + F.obc_mask_u * u_fl,
+                    vbt * (1.0 - F.obc_mask_v) + F.obc_mask_v * v_fl)
+
+        def obc_eta(eta):
+            return torch.where(F.obc_mask_cell > 0.5, F.obc_eta_ext, eta)
+    else:
+        def obc_bt(ubt, vbt, eta):
+            return ubt, vbt
+
+        def obc_eta(eta):
+            return eta
+
     def half_step(ubt, vbt, eta, uhbt, vhbt, u_leads: bool):
         """One substep; ``uhbt``/``vhbt`` are the transports of the entry
         velocities, carried from the previous substep."""
@@ -234,9 +273,9 @@ def _make_half_step(F: BTFields, consts: dict, kit: dict):
             vbt = dragged_v(vbt + dtbt * (F.bt_force_v + cv + pfv))
             cu = cor_u(F.tot_hv * vbt) - F.cor_ref_u
             ubt = dragged_u(ubt + dtbt * (F.bt_force_u + cu + pfu))
-        uhbt = F.Datu * ubt + F.uhbt0
-        vhbt = F.Datv * vbt + F.vhbt0
-        eta = eta + dtbt * div_eta(uhbt, vhbt)
+        ubt, vbt = obc_bt(ubt, vbt, eta_w)
+        uhbt, vhbt = transports(ubt, vbt)
+        eta = obc_eta(eta + dtbt * div_eta(uhbt, vhbt))
         return ubt, vbt, eta, uhbt, vhbt, cu + pfu, cv + pfv
 
     return half_step
@@ -289,12 +328,12 @@ def _run_subcycle_dense(half_step, evolve0, wt_trans, wt_vel,
 def btstep(u_in, v_in, eta_in, bc_accel_u, bc_accel_v, h, uh_in, vh_in,
            visc_rem_u, visc_rem_v, pbce, eta_PF, dt, G, GV,
            params: BTParams, taux=None, tauy=None, x_first: bool = True,
-           obc=None) -> BTOut:
+           bt_cont=None, obc=None) -> BTOut:
     """One barotropic cycle covering a baroclinic step of length ``dt``
-    (dense path, linearized transports Datu*ubt + uhbt0)."""
-    for on, what in ((params.use_bt_cont, "BT_cont transports"),
-                     (obc is not None, "open boundaries"),
-                     (params.wide_halo != 0, "the wide-halo subcycle"),
+    (dense path).  ``bt_cont``: the BTCont curves (set_bt_cont), used
+    with ``params.use_bt_cont``; ``obc``: an OBCParams, the open
+    boundaries inside each substep."""
+    for on, what in ((params.wide_halo != 0, "the wide-halo subcycle"),
                      (params.dynamic_psurf, "dynamic surface pressure"),
                      (params.sal_scalar != 0.0, "scalar SAL")):
         if on:
@@ -322,9 +361,21 @@ def btstep(u_in, v_in, eta_in, bc_accel_u, bc_accel_v, h, uh_in, vh_in,
     ubt_in = vsum(wt_u * u_in) / norm_u
     vbt_in = vsum(wt_v * v_in) / norm_v
 
-    # layer-sum transport mismatch
-    uhbt0 = vsum(uh_in) - Datu * ubt_in
-    vhbt0 = vsum(vh_in) - Datv * vbt_in
+    # the transports of the velocities, linear or the BT_cont curves,
+    # offset by the layer-sum transport mismatch at the initial velocities
+    if params.use_bt_cont and bt_cont is not None:
+        def curves(ubt, vbt):
+            return find_uhbt(ubt, bt_cont), find_vhbt(vbt, bt_cont)
+    else:
+        def curves(ubt, vbt):
+            return Datu * ubt, Datv * vbt
+    uh_c, vh_c = curves(ubt_in, vbt_in)
+    uhbt0 = vsum(uh_in) - uh_c
+    vhbt0 = vsum(vh_in) - vh_c
+
+    def transports(ubt, vbt):
+        uh, vh = curves(ubt, vbt)
+        return uh + uhbt0, vh + vhbt0
 
     frac_h = h / torch.clamp(vsum(h, keepdim=True), min=1e-30)
     gtot = vsum(frac_h * pbce)
@@ -375,20 +426,39 @@ def btstep(u_in, v_in, eta_in, bc_accel_u, bc_accel_v, h, uh_in, vh_in,
                            torch.clamp(av_rem_v, min=1e-30) ** instep,
                            zero) * G.mask2dCv
 
+    # the open boundaries inside the subcycle, on apply_obc's faces; the
+    # SPECIFIED faces take their depth-mean inflow with no wave speed
+    obc_fields = {}
+    if obc is not None:
+        c_fl = torch.sqrt(rdiv(GV.g_earth, torch.clamp(G.bathyT, min=1.0)))
+        c_u, c_v = c_fl, c_fl
+        mask_u_all, mask_v_all = obc.mask_u, obc.mask_v
+        if obc.mask_u_spec is not None:
+            c_u = c_fl * (1.0 - obc.mask_u_spec)
+            mask_u_all = torch.clamp(obc.mask_u + obc.mask_u_spec, 0.0, 1.0)
+        if obc.mask_v_spec is not None:
+            c_v = c_fl * (1.0 - obc.mask_v_spec)
+            mask_v_all = torch.clamp(obc.mask_v + obc.mask_v_spec, 0.0, 1.0)
+        obc_fields = dict(
+            obc_mask_u=mask_u_all, obc_mask_v=mask_v_all,
+            obc_mask_cell=obc.mask_cell, obc_sign_u=obc.sign_u,
+            obc_sign_v=obc.sign_v, obc_uvel_ext=obc.uvel_ext,
+            obc_vvel_ext=obc.vvel_ext, obc_eta_ext=obc.eta_ext,
+            obc_c_fl_u=c_u, obc_c_fl_v=c_v)
+
     F = BTFields(
         eta_PF=eta_PF, gtot=gtot, bt_force_u=bt_force_u,
         bt_force_v=bt_force_v, q_f=q_f, tot_hu=tot_hu, tot_hv=tot_hv,
         cor_ref_u=cor_ref_u, cor_ref_v=cor_ref_v,
-        rem_u=bt_rem_u, rem_v=bt_rem_v, uhbt0=uhbt0, vhbt0=vhbt0,
+        rem_u=bt_rem_u, rem_v=bt_rem_v,
         mask_u=G.mask2dCu, mask_v=G.mask2dCv, IareaT=G.IareaT,
-        IdxCu=G.IdxCu, IdyCv=G.IdyCv, Datu=Datu, Datv=Datv,
-        drag_u=drag_u, drag_v=drag_v)
+        IdxCu=G.IdxCu, IdyCv=G.IdyCv, drag_u=drag_u, drag_v=drag_v,
+        **obc_fields)
     sal_fac = rnd(1.0 - params.sal_scalar)
     consts = dict(dtbt=dtbt, bebt=bebt, geo=rnd(dgeo * sal_fac))
 
-    half_step = _make_half_step(F, consts, dense_kit(G))
-    uhbt_0 = Datu * ubt_in + uhbt0
-    vhbt_0 = Datv * vbt_in + vhbt0
+    half_step = _make_half_step(F, consts, dense_kit(G), transports)
+    uhbt_0, vhbt_0 = transports(ubt_in, vbt_in)
     carry = _run_subcycle_dense(half_step,
                                 (ubt_in, vbt_in, eta_in, uhbt_0, vhbt_0),
                                 wt_trans, wt_vel, nstep, nfilter,

@@ -15,11 +15,16 @@ with ``fold=True``, the tripolar northern fold: there the j+1 neighbour
 of the top row is the x-mirrored top row, its slope changes sign and its
 south/north edge pair swaps.  The Newton bookkeeping (column sums, the
 ``du`` update and its clip) stays in PyTorch.
+
+``set_bt_cont`` builds the barotropic solver's transport response curves
+(BT_cont, USE_BT_CONT_TYPE) from one more x and y edge reconstruction of
+the step's starting thickness, through the same ``zonal_edges`` and
+``merid_edges``; ``find_uhbt``/``find_vhbt`` evaluate them.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -29,7 +34,8 @@ from mom6_tpu_torch.framework.stencil import (im1, ip1, jm1, jm1_s0, jp1,
                                               jp1_sn)
 
 __all__ = ["continuity_ppm", "zonal_mass_flux", "meridional_mass_flux",
-           "zonal_edges", "merid_edges", "zonal_flux", "merid_flux"]
+           "zonal_edges", "merid_edges", "zonal_flux", "merid_flux",
+           "BTCont", "set_bt_cont", "find_uhbt", "find_vhbt"]
 
 # fixed Newton iterates of the barotropic flux adjustment (as the
 # reference: f32 round-off after 3)
@@ -467,3 +473,125 @@ def continuity_ppm(u, v, h, dt, G, GV, *,
     if return_cor:
         return h_new, uh, vh, u_adj, v_adj, du, dv
     return h_new, uh, vh, u_adj, v_adj
+
+
+# ---------------------------------------------------------------------------
+# the barotropic transport response curves (BT_cont)
+# ---------------------------------------------------------------------------
+
+class BTCont(NamedTuple):
+    """Piecewise transport response curves uhbt(ubt) per face, the
+    BT_cont_type of MOM_continuity_PPM.F90:set_BT_cont, read by
+    find_uhbt (MOM_barotropic.F90:4610).  For flow from the west through
+    a u face:
+
+      uhbt(u) = u (FA_W0 + crvW u^2)            for 0 <= u <= uBT_WW
+              = (u - uBT_WW) FA_WW + uh(uBT_WW) for u > uBT_WW
+
+    and likewise with the E fields for flow from the east; (ny, nx)
+    each, the column sums of the layers' curves."""
+    FA_u_W0: torch.Tensor
+    FA_u_WW: torch.Tensor
+    uBT_WW: torch.Tensor
+    uh_crvW: torch.Tensor
+    FA_u_E0: torch.Tensor
+    FA_u_EE: torch.Tensor
+    uBT_EE: torch.Tensor
+    uh_crvE: torch.Tensor
+    FA_v_S0: torch.Tensor
+    FA_v_SS: torch.Tensor
+    vBT_SS: torch.Tensor
+    vh_crvS: torch.Tensor
+    FA_v_N0: torch.Tensor
+    FA_v_NN: torch.Tensor
+    vBT_NN: torch.Tensor
+    vh_crvN: torch.Tensor
+
+
+# the CFL at which set_bt_cont's cubic hands over to the linear tail
+BT_CONT_CFL = 0.5
+
+
+def _curve_params(fa0, fa_mean_cap, fa_marg_cap, u_cap):
+    """The cubic uh(u) = u (fa0 + crv u^2) through the mean face area at
+    the transition velocity, crv clipped to keep it monotone, and the
+    marginal area beyond it."""
+    crv = (fa_mean_cap - fa0) / torch.clamp(u_cap * u_cap, min=1e-30)
+    crv = torch.maximum(crv, -fa0 / torch.clamp(3.0 * u_cap * u_cap,
+                                                min=1e-30))
+    return crv, torch.clamp(fa_marg_cap, min=0.0)
+
+
+def _mean_marg(h_d, edge, other_edge, cfl):
+    """The PPM swept mean and marginal thickness at CFL ``cfl`` of a
+    donor cell whose reconstruction runs from ``other_edge`` to the
+    downstream face value ``edge``."""
+    curv = (edge + other_edge) - 2.0 * h_d
+    h_avg = edge + cfl * (0.5 * (other_edge - edge) + curv * (cfl - 1.5))
+    h_marg = edge + cfl * ((other_edge - edge) + 3.0 * curv * (cfl - 1.0))
+    return h_avg, h_marg
+
+
+def set_bt_cont(h, dt, G, GV, *, monotonic=False) -> BTCont:
+    """The response curves of ``h``'s PPM reconstruction (set_BT_cont),
+    the cubic handing over to the linear tail at CFL ``BT_CONT_CFL``.
+    The edges come from ``zonal_edges`` and ``merid_edges``."""
+    h_min = GV.angstrom
+    fold = bool(getattr(G, "fold_north", False))
+    kh = "h" if fold else None
+    h_W, h_E = zonal_edges(h, G.mask2dT, h_min, monotonic)
+    h_S, h_N = merid_edges(h, G.mask2dT, h_min, monotonic, fold=fold)
+    face_u = (G.dyCu * G.mask2dCu)[None]
+    face_v = (G.dxCv * G.mask2dCv)[None]
+    c = BT_CONT_CFL
+
+    def curve(face, h_d, edge, other_edge, u_cap):
+        h_avg, h_marg = _mean_marg(h_d, edge, other_edge, c)
+        fa0 = face * edge
+        crv, fa_marg = _curve_params(fa0, face * h_avg, face * h_marg,
+                                     u_cap[None])
+        return vsum(fa0), vsum(fa_marg), vsum(crv)
+
+    # u faces: from the west the donor is cell i with downstream edge
+    # h_E(i); from the east cell i+1 with h_W(i+1)
+    ubt_ww = rdiv(c, dt * G.IdxT)
+    ubt_ee = rdiv(-c, dt * ip1(G.IdxT))
+    fa_w0, fa_ww, crv_w = curve(face_u, h, h_E, h_W, ubt_ww)
+    fa_e0, fa_ee, crv_e = curve(face_u, ip1(h), ip1(h_W), ip1(h_E),
+                                -ubt_ee)
+    # v faces
+    vbt_ss = rdiv(c, dt * G.IdyT)
+    vbt_nn = rdiv(-c, dt * jp1(G.IdyT, kh))
+    fa_s0, fa_ss, crv_s = curve(face_v, h, h_N, h_S, vbt_ss)
+    jS, jN = jp1_sn(h_S, h_N, kh)
+    fa_n0, fa_nn, crv_n = curve(face_v, jp1(h, kh), jS, jN, -vbt_nn)
+    return BTCont(
+        FA_u_W0=fa_w0, FA_u_WW=fa_ww, uBT_WW=ubt_ww, uh_crvW=crv_w,
+        FA_u_E0=fa_e0, FA_u_EE=fa_ee, uBT_EE=ubt_ee, uh_crvE=crv_e,
+        FA_v_S0=fa_s0, FA_v_SS=fa_ss, vBT_SS=vbt_ss, vh_crvS=crv_s,
+        FA_v_N0=fa_n0, FA_v_NN=fa_nn, vBT_NN=vbt_nn, vh_crvN=crv_n)
+
+
+def _find_hbt(u, fa_p0, fa_pp, u_pp, crv_p, fa_m0, fa_mm, u_mm, crv_m):
+    """The curve's transport at velocity ``u`` (p: flow in the positive
+    direction, m: in the negative)."""
+    uh_pp = u_pp * (fa_p0 + crv_p * (u_pp * u_pp))
+    uh_mm = u_mm * (fa_m0 + crv_m * (u_mm * u_mm))
+    return torch.where(
+        u > u_pp, (u - u_pp) * fa_pp + uh_pp,
+        torch.where(u >= 0.0, u * (fa_p0 + crv_p * u * u),
+                    torch.where(u > u_mm, u * (fa_m0 + crv_m * u * u),
+                                (u - u_mm) * fa_mm + uh_mm)))
+
+
+def find_uhbt(u, btc: BTCont):
+    """Barotropic zonal transport from the curves (find_uhbt,
+    MOM_barotropic.F90:4610)."""
+    return _find_hbt(u, btc.FA_u_W0, btc.FA_u_WW, btc.uBT_WW, btc.uh_crvW,
+                     btc.FA_u_E0, btc.FA_u_EE, btc.uBT_EE, btc.uh_crvE)
+
+
+def find_vhbt(v, btc: BTCont):
+    """Barotropic meridional transport from the curves (find_vhbt)."""
+    return _find_hbt(v, btc.FA_v_S0, btc.FA_v_SS, btc.vBT_SS, btc.vh_crvS,
+                     btc.FA_v_N0, btc.FA_v_NN, btc.vBT_NN, btc.vh_crvN)

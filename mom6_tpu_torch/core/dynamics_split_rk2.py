@@ -10,7 +10,10 @@
               velocity replaces the vertical mean; final continuity
 
 ``return_accel=True`` also returns the corrector's accelerations
-(:class:`AccelDiag`), which the KE budget of the diagnostics reads.
+(:class:`AccelDiag`), which the KE budget of the diagnostics reads.  With
+``bt.use_bt_cont`` the barotropic transport curves are built once a step
+from the starting thickness (set_bt_cont) and both btstep calls use
+them; ``obc`` (an OBCParams) goes to both btstep calls.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from mom6_tpu_torch.core.barotropic import BTParams, btstep
-from mom6_tpu_torch.core.continuity_ppm import continuity_ppm
+from mom6_tpu_torch.core.continuity_ppm import continuity_ppm, set_bt_cont
 from mom6_tpu_torch.core.coriolis_adv import SADOURNY75_ENERGY, coriolis_adv
 from mom6_tpu_torch.core.pressure_force import (find_eta,
                                                 pressure_force_montgomery)
@@ -146,7 +149,7 @@ def _visc_setup(h, u, v, G, GV, p: DynParams, kv_int=None):
 
 def step_dynamics_split_rk2(state: OceanState, forces: MechForcing,
                             G, GV, p: DynParams, *, pf_fn=None,
-                            hv_fn=None, kv_int=None,
+                            hv_fn=None, kv_int=None, obc=None,
                             return_accel: bool = False):
     """One baroclinic step; returns the new state (the input's tensors
     are not modified), and with ``return_accel`` also the corrector's
@@ -154,7 +157,8 @@ def step_dynamics_split_rk2(state: OceanState, forces: MechForcing,
     the Montgomery pressure force (the FV/EOS form of the thermo path);
     ``hv_fn(u, v, h) -> (diffu, diffv)`` adds lateral friction.  The
     predictor and the corrector each call both.  ``kv_int``: the
-    boundary-layer and shear interface viscosity (see _visc_setup)."""
+    boundary-layer and shear interface viscosity (see _visc_setup);
+    ``obc``: the open boundaries of both barotropic solves."""
     if p.scheme.upper() != "RK2":
         raise NotImplementedError(f"scheme {p.scheme} is not ported")
     dt = p.dt
@@ -180,6 +184,11 @@ def step_dynamics_split_rk2(state: OceanState, forces: MechForcing,
         h, u, v, G, GV, p, kv_int=kv_int)
     # continuity fluxes of the initial state (btstep's uhbt0)
     _, uh_in, vh_in, _, _ = continuity_ppm(u, v, h, dt, G, GV, **cont)
+    # the barotropic transport curves of the starting thickness
+    bt_cont = set_bt_cont(h, dt, G, GV, monotonic=p.continuity_monotonic) \
+        if p.bt.use_bt_cont else None
+    bt_kw = dict(taux=forces.taux, tauy=forces.tauy, x_first=p.x_first,
+                 bt_cont=bt_cont, obc=obc)
 
     # ---- predictor ---------------------------------------------------------
     pf = pf_fn(h, state)
@@ -193,8 +202,7 @@ def step_dynamics_split_rk2(state: OceanState, forces: MechForcing,
     bt_pred = p.bt.replace(nstep=nstep_pred, nfilter=nfilt_pred)
     bt1 = btstep(u, v, eta, u_bc, v_bc, h, uh_in, vh_in,
                  visc_rem_u, visc_rem_v, pf.pbce, pf.eta_PF,
-                 dt_pred, G, GV, bt_pred, taux=forces.taux,
-                 tauy=forces.tauy, x_first=p.x_first)
+                 dt_pred, G, GV, bt_pred, **bt_kw)
 
     up = (u + dt_pred * (u_bc + bt1.accel_layer_u)) * G.mask2dCu
     vp = (v + dt_pred * (v_bc + bt1.accel_layer_v)) * G.mask2dCv
@@ -220,8 +228,7 @@ def step_dynamics_split_rk2(state: OceanState, forces: MechForcing,
 
     bt2 = btstep(u, v, eta, u_bc2, v_bc2, h, uh_in, vh_in,
                  visc_rem_u, visc_rem_v, pf2.pbce, pf2.eta_PF,
-                 dt, G, GV, p.bt, taux=forces.taux, tauy=forces.tauy,
-                 x_first=p.x_first)
+                 dt, G, GV, p.bt, **bt_kw)
 
     u_pre = (u + dt * (u_bc2 + bt2.accel_layer_u)) * G.mask2dCu
     v_pre = (v + dt * (v_bc2 + bt2.accel_layer_v)) * G.mask2dCv

@@ -11,7 +11,9 @@ assemble_diffusivity_extras).
       split-RK2 dynamics with the FV pressure force, lateral friction and
       the boundary-layer and shear viscosity ``kv_shear`` of the last
       cycle, accumulating the transports uhtr/vhtr (or, with
-      ``unsplit``, the unsplit RK3 or RK2 step)
+      ``unsplit``, the unsplit RK3 or RK2 step); then, with open
+      boundaries, apply_obc with the step's starting velocities and,
+      with thermodynamics and reservoir lengths, the tracer reservoirs
   then, with thermodynamics on, on the stack of T, S and the registered
   passive tracers (T, S, then the registry's order):
       tracer advection with the accumulated transports
@@ -35,10 +37,11 @@ MOM_tracer_registry.F90), which sum to the total change;
 for the KE budget.  Both serve the diagnostic catalog.
 
 Ported: the thermo ALE branch and the adiabatic branch, the unsplit
-steppers, GM with a constant KHTH or KHTH + MEKE, MEKE, the mixed-layer
-restratification, the plain KHTR tracer diffusion, KPP, ePBL, the
-LMD94/PP81 shear mixing and the tracer packages.  Every other optional
-subsystem of the reference's MOMParams (varmix, OBC, sponges, tides,
+steppers, the open boundaries (``obc``, with the forcing's time-dependent
+``obc_data``), GM with a constant KHTH or KHTH + MEKE, MEKE, the
+mixed-layer restratification, the plain KHTR tracer diffusion, KPP,
+ePBL, the LMD94/PP81 shear mixing and the tracer packages.  Every other
+optional subsystem of the reference's MOMParams (varmix, sponges, tides,
 SPPT/SKEB, porous barriers, ZB, BBL viscosity, Stanley, DIABATIC_FIRST,
 the passivity, capped, neutral and boundary-layer forms of tracer
 diffusion, MEKE's backscatter and friction source...), the bulk mixed
@@ -56,6 +59,9 @@ import torch
 from mom6_tpu_torch.ale.ale import LAYER, ALEParams, ale_regrid_remap
 from mom6_tpu_torch.core.dynamics_split_rk2 import (DynParams, MechForcing,
                                                     step_dynamics_split_rk2)
+from mom6_tpu_torch.core.open_boundary import (OBCData, OBCParams,
+                                               apply_obc, merge_obc_data,
+                                               update_tracer_reservoirs)
 from mom6_tpu_torch.core.dynamics_unsplit import (UnsplitParams,
                                                   step_dynamics_unsplit_rk2,
                                                   step_dynamics_unsplit_rk3)
@@ -89,7 +95,7 @@ __all__ = ["MOMParams", "Forcing", "step_mom", "dyn_accel_diag",
 
 # the reference's optional subsystems; each raises unless it keeps the
 # default given below
-_UNPORTED = ("varmix", "obc", "int_tides",
+_UNPORTED = ("varmix", "int_tides",
              "khtr_passivity_coeff", "khtr_max", "neutral_diffusion",
              "khtr_bl", "diabatic_first", "homogenize_forcings",
              "sponge", "interface_filter", "porous", "zb", "bbl_visc",
@@ -113,9 +119,9 @@ class MOMParams:
     khtr_n_sub: int = 1             # its subcycles
     mlrestrat: Optional[MLRestratParams] = None
     meke: Optional[MEKEParams] = None   # needs gm and the state's E_meke
+    obc: Optional[OBCParams] = None     # open boundaries
     # not ported: set to anything but these defaults, they raise
     varmix: Optional[object] = None
-    obc: Optional[object] = None
     int_tides: Optional[object] = None
     khtr_passivity_coeff: float = 0.0
     khtr_max: float = 0.0
@@ -148,10 +154,18 @@ class MOMParams:
 class Forcing:
     mech: MechForcing = MechForcing()
     buoy: BuoyancyForcing = BuoyancyForcing()
+    # the open boundaries' exterior data at this time (replaces those of
+    # MOMParams.obc; update_OBC_segment_data)
+    obc_data: Optional[OBCData] = None
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
 
     def to(self, device=None, dtype=None):
         return Forcing(self.mech.to(device, dtype),
-                       self.buoy.to(device, dtype))
+                       self.buoy.to(device, dtype),
+                       None if self.obc_data is None
+                       else self.obc_data.to(device, dtype))
 
 
 _DEFAULTS = {f.name: f.default for f in dataclasses.fields(MOMParams)}
@@ -290,19 +304,27 @@ def _step_mom_impl(state: OceanState, forcing: Forcing, G, GV,
                                                p.mlrestrat)
         state = state.replace(h=h_mlr, uhtr=state.uhtr + dt_therm * uh_m,
                               vhtr=state.vhtr + dt_therm * vh_m)
+    obc = p.obc
+    if obc is not None:
+        obc = merge_obc_data(obc, forcing.obc_data)
     for _ in range(p.n_dyn_per_thermo):
+        st = state
         if p.unsplit is not None:
             # neither the lateral friction nor kv_shear: as the reference
             stepper = step_dynamics_unsplit_rk2 \
                 if p.unsplit_scheme.upper() == "RK2" \
                 else step_dynamics_unsplit_rk3
-            st = state
             pf1 = (lambda hh: pf_fn(hh, st)) if pf_fn is not None else None
             state = stepper(st, forcing.mech, G, GV, p.unsplit, pf_fn=pf1)
         else:
-            state = step_dynamics_split_rk2(state, forcing.mech, G, GV,
+            state = step_dynamics_split_rk2(st, forcing.mech, G, GV,
                                             p.dyn, pf_fn=pf_fn, hv_fn=hv_fn,
-                                            kv_int=state.kv_shear)
+                                            kv_int=st.kv_shear, obc=obc)
+        if obc is not None:
+            state = apply_obc(state, obc, G, GV, p.dyn.dt, u_old=st.u,
+                              v_old=st.v)
+            if p.thermo_enabled and obc.res_len_in > 0.0:
+                state = update_tracer_reservoirs(state, obc, G, p.dyn.dt)
     if not p.thermo_enabled:
         return state
 

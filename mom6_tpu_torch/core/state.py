@@ -10,8 +10,10 @@ the boundary-layer and shear-mixing viscosity at h-point interfaces
 friction uses; and ``tr``, the passive tracers of the registered
 packages (tracers/packages.py), one (nz, ny, nx) tensor per registered
 name plus the packages' 0-dim clocks (names starting with "_"), which
-are never stacked, advected or masked.  build_model_from_params
-allocates each where its scheme is on.
+are never stacked, advected or masked; and ``obc_res_T``/``obc_res_S``
+(nz, ny, nx), the open boundaries' tracer reservoirs
+(core/open_boundary.py::update_tracer_reservoirs).
+build_model_from_params allocates each where its scheme is on.
 """
 
 from __future__ import annotations
@@ -41,6 +43,8 @@ class OceanState(TensorDataclass):
     E_meke: Optional[torch.Tensor] = None
     kv_shear: Optional[torch.Tensor] = None
     tr: Optional[Dict[str, torch.Tensor]] = None
+    obc_res_T: Optional[torch.Tensor] = None
+    obc_res_S: Optional[torch.Tensor] = None
 
 
 def init_state_resting(grid, vgrid, thicknesses, dtype=torch.float32,

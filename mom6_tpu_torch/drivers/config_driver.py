@@ -8,10 +8,14 @@ and the analytic gates (``configs/external_gwave``, ``soliton`` and the
 parameter texts of tests/test_analytic_parity.py) read, and the defaults
 they leave in force: the Cartesian grid with flat or bowl topography,
 the spherical and Mercator grids and the mosaic grid with file
-topography and the northern fold, the seamount, dome2d, dumbbell and
-Neverworld topographies, the layered vertical grid, the
-split-RK2 dynamics with Laplacian or Smagorinsky friction and the
-unsplit RK3 and RK2 steppers (SPLIT = False), the adiabatic
+topography and the northern fold, the seamount, dome2d, dumbbell,
+Neverworld, Kelvin, shelfwave and DOME topographies, the layered
+vertical grid, the split-RK2 dynamics with Laplacian or Smagorinsky
+friction and the BT_cont transports (USE_BT_CONT_TYPE), the open
+boundaries (OBC_NUMBER_OF_SEGMENTS: both segment syntaxes, their _DATA
+strings with ``value:`` and ``file:`` data, the Kelvin, shelfwave and DOME
+data of OBC_USER_CONFIG and the tracer reservoirs), the unsplit RK3 and
+RK2 steppers (SPLIT = False), the adiabatic
 (ENABLE_THERMODYNAMICS = False) and the thermo cycle, z* and RHO ALE,
 the Wright or linear EOS, GM with a constant KHTH, MEKE, the mixed-layer
 restratification, KHTR, the background diffusivity, KPP, ePBL
@@ -21,12 +25,13 @@ age, regional dyes, boundary impulse, pseudo-salt, OCMIP2 CFCs), the
 (``ideal_hurr``, ``SCM_ideal_hurr``) and the wind and buoyancy fluxes
 from a file (``file``), the ``NS_heating`` and ``const`` fluxes and SST
 restoring, the resting initial state (THICKNESS_CONFIG = uniform) and
-its ``internal_wave``, ``sloshing``, ``gwave``, ``soliton`` and
-``phillips`` displacements, and the T_REF/T_RANGE profile, the ``front``
-or the ``rossby_front`` of TS_CONFIG.  Time-dependent forcing (the
-hurricane, the file records) comes with ``ModelSetup.forcing_provider``,
-model time [s] -> Forcing (the reference's provider without its open
-boundaries, which are not ported).  With ``doc_dir`` the parameters read
+its ``internal_wave``, ``sloshing``, ``gwave``, ``soliton``, ``phillips``
+and ``circle_obcs`` displacements, and the T_REF/T_RANGE profile, the
+``front`` or the ``rossby_front`` of TS_CONFIG.  Time-dependent forcing
+(the hurricane, the file records, the open boundaries' series) comes
+with ``ModelSetup.forcing_provider``, model time [s] -> Forcing.  An OBC
+scheme token the port does not know raises NotImplementedError (the
+reference warns and drops it).  With ``doc_dir`` the parameters read
 are written out as ``MOM_parameter_doc.all`` and ``.short`` there.
 
 Every other switch that the reference's function reads is listed in
@@ -54,7 +59,10 @@ from mom6_tpu_torch.core.barotropic import BTParams, set_dtbt
 from mom6_tpu_torch.core.dynamics_split_rk2 import DynParams, MechForcing
 from mom6_tpu_torch.core.dynamics_unsplit import UnsplitParams
 from mom6_tpu_torch.core.mom import Forcing, MOMParams
+from mom6_tpu_torch.core.open_boundary import (SCHEMES, OBCData, OBCSegment,
+                                               build_obc, segment_slices)
 from mom6_tpu_torch.core.state import OceanState, init_state_resting
+from mom6_tpu_torch.drivers import user_cases
 from mom6_tpu_torch.drivers.user_cases import (hurricane_wind_fn,
                                                neverworld_depth)
 from mom6_tpu_torch.framework.config import ParamFile
@@ -91,7 +99,6 @@ _INERT = {
     "SPLIT_RK2B": (False, "MOM"),
     "COORD_CONFIG": ("gprime", "MOM_coord_initialization"),
     "REENTRANT_Y": (False, "MOM_grid_init"),
-    "USE_BT_CONT_TYPE": (False, "MOM_barotropic"),
     "BT_LIN_DRAG": (0.0, "MOM_barotropic"),
     "BT_CDRAG": (0.0, "MOM_barotropic"),
     "DYNAMIC_SURFACE_PRESSURE": (False, "MOM_barotropic"),
@@ -111,7 +118,6 @@ _INERT = {
     "INT_TIDE_DISSIPATION": (False, "MOM_tidal_mixing"),
     "BULKMIXEDLAYER": (False, "MOM_bulk_mixed_layer"),
     "USE_JACKSON_PARAM": (False, "MOM_diabatic_driver"),
-    "OBC_NUMBER_OF_SEGMENTS": (0, "MOM_open_boundary"),
     "INTERNAL_TIDES": (False, "MOM_internal_tides"),
     "GEOTHERMAL_SCALE": (0.0, "MOM_geothermal"),
     "PEN_SW_NBANDS": (0, "MOM_opacity"),
@@ -160,7 +166,7 @@ class ModelSetup(NamedTuple):
 
 
 # the barotropic switches, which the reference reads in split mode only
-_SPLIT_ONLY = ("USE_BT_CONT_TYPE", "BT_LIN_DRAG", "BT_CDRAG",
+_SPLIT_ONLY = ("BT_LIN_DRAG", "BT_CDRAG",
                "DYNAMIC_SURFACE_PRESSURE", "CONST_DYN_PSURF",
                "ICE_LENGTH_DYN_PSURF", "BT_WIDE_HALO")
 
@@ -199,10 +205,10 @@ def _bowl(nx: int, ny: int, max_depth: float) -> np.ndarray:
 
 
 def _analytic_topography(pf, topo_config, nx, ny, lenlon, lenlat,
-                         max_depth, m) -> np.ndarray:
-    """TOPO_CONFIG = seamount, dome2d, dumbbell or Neverworld (the
-    reference's branches, config_driver.py:124-215, in its float64
-    numpy arithmetic)."""
+                         max_depth, min_depth, m) -> np.ndarray:
+    """TOPO_CONFIG = seamount, dome2d, dumbbell, Kelvin, shelfwave, DOME
+    or Neverworld (the reference's branches, config_driver.py:124-215, in
+    its float64 numpy arithmetic)."""
     if topo_config == "seamount":
         # Gaussian seamount on a flat bottom (seamount_initialization.F90)
         delta = pf.get("SEAMOUNT_DELTA", float, default=0.5, module=m,
@@ -242,6 +248,38 @@ def _analytic_topography(pf, topo_config, nx, ny, lenlon, lenlat,
         return np.where(in_strait & ~strait_open, 0.0,
                         np.where(in_strait, sill, max_depth)
                         ) * np.ones((ny, nx))
+    dmin = max(min_depth, 1e-3)
+    if topo_config == "Kelvin":
+        # angled-coast channel (Kelvin_initialize_topography)
+        return user_cases.kelvin_depth(
+            nx, ny, lenlon, lenlat, max_depth, dmin,
+            coast_offset1=pf.get("ROTATED_COAST_OFFSET_1", float,
+                                 default=100.0, units="km", module=m),
+            coast_offset2=pf.get("ROTATED_COAST_OFFSET_2", float,
+                                 default=10.0, units="km", module=m),
+            coast_angle_deg=pf.get("ROTATED_COAST_ANGLE", float,
+                                   default=11.3, units="degrees",
+                                   module=m))
+    if topo_config == "shelfwave":
+        # exponential cross-shore shelf (shelfwave_initialize_topography)
+        return user_cases.shelfwave_depth(
+            nx, ny, lenlat, max_depth, dmin,
+            ly=pf.get("SHELFWAVE_Y_LENGTH_SCALE", float, default=50.0,
+                      units="km", module=m))
+    if topo_config == "DOME":
+        # slope basin and shelf embayment (DOME_initialize_topography)
+        return user_cases.dome_depth(
+            nx, ny, lenlon, lenlat, max_depth, dmin,
+            shelf_depth=pf.get("DOME_SHELF_DEPTH", float, default=600.0,
+                               units="m", module=m),
+            shelf_edge_lat=pf.get("DOME_SHELF_EDGE_LAT", float,
+                                  default=600.0, units="km", module=m),
+            inflow_lon=pf.get("DOME_INFLOW_LON", float, default=1000.0,
+                              units="km", module=m),
+            inflow_width=pf.get("DOME_INFLOW_WIDTH", float, default=100.0,
+                                units="km", module=m),
+            slope=pf.get("DOME_TOPOG_SLOPE", float, default=0.01,
+                         module=m))
     # Neverworld: two basins and a reentrant southern channel
     # (Neverworld_initialization.F90)
     return neverworld_depth(
@@ -272,7 +310,8 @@ def _build_grid(pf: ParamFile, dtype, device, input_dir):
     beta = pf.get("BETA", float, default=0.0, units="m-1 s-1", module=m)
     topo_config = _one_of(pf, "TOPO_CONFIG", "flat",
                           ("flat", "bowl", "file", "seamount", "dome2d",
-                           "dumbbell", "Neverworld"), m)
+                           "dumbbell", "Kelvin", "shelfwave", "DOME",
+                           "Neverworld"), m)
     cyclic_x = pf.get("REENTRANT_X", bool, default=False, module=m)
 
     if topo_config == "file":
@@ -293,7 +332,7 @@ def _build_grid(pf: ParamFile, dtype, device, input_dir):
             depth = read_topography()
         elif topo_config != "flat":
             depth = _analytic_topography(pf, topo_config, nx, ny, lenlon,
-                                         lenlat, max_depth, m)
+                                         lenlat, max_depth, min_depth, m)
         if depth is not None:
             if depth.shape != (ny, nx):
                 raise ValueError(f"topography shape {depth.shape} != "
@@ -552,18 +591,262 @@ def _bilinear(raw: dict, G):
                               G.geoLatT.cpu().numpy())
 
 
+def _obc_extent(tok, size):
+    """One end of the reference's I=a:b extent (a number or N)."""
+    tok = tok.strip().upper()
+    return size if tok == "N" else int(tok)
+
+
+def _obc_data(pf, n, edge, lo, hi, G, input_dir, obc_ts, m) -> dict:
+    """OBC_SEGMENT_nnn_DATA: constants ("U=value:0.1") into the returned
+    dict, file series ('SSH=file:bay.nc(ssh)') appended to ``obc_ts`` as
+    (key, slice, series); the reference's update_OBC_segment_data
+    forms."""
+    data = pf.get(f"OBC_SEGMENT_{n:03d}_DATA", str, default="", module=m)
+    dvals = {}
+    fsl, csl = segment_slices(edge, lo, hi, G.ny, G.nx)
+    for item in data.split(","):
+        if "=" not in item:
+            continue
+        key, val = item.split("=", 1)
+        key = key.strip().upper()
+        val = val.strip()
+        if val.lower().startswith("file:"):
+            fname, var = val[5:].split("(")
+            var = var.rstrip(")")
+            raw = read_nc(_input_path(pf, fname, input_dir))
+            tax = raw.get("time", np.arange(raw[var].shape[0], dtype=float))
+            ts = TimeSeriesField(np.asarray(tax, np.float64),
+                                 np.asarray(raw[var], np.float64),
+                                 periodic=True)
+            obc_ts.append((key, fsl if key in ("U", "V") else csl, ts))
+        elif ":" in val:
+            dvals[key] = float(val.split(":", 1)[1])
+        else:
+            dvals[key] = float(val)
+    return dvals
+
+
+def _obc_segments(pf, G, input_dir, obc_ts, m):
+    """The OBC_SEGMENT_nnn strings as OBCSegments, in either syntax: the
+    reference's "J=N,I=N:0,FLATHER,ORLANSKI" (the fixed edge, an optional
+    extent, the schemes) or "EDGE=E,SCHEME=ORLANSKI[,ETA=..][,VEL=..]
+    [,TEMP=..][,SALT=..][,TAU=..][,LO=..][,HI=..]"."""
+    segs = []
+    for n in range(1, pf.get("OBC_NUMBER_OF_SEGMENTS", int, default=0,
+                             module=m) + 1):
+        spec = pf.get(f"OBC_SEGMENT_{n:03d}", str, module=m)
+        items = [it.strip() for it in spec.split(",")]
+        if items[0].split("=", 1)[0].strip().upper() in ("I", "J"):
+            axis, pos = items[0].split("=", 1)
+            pos = pos.strip().upper()
+            if axis.strip().upper() == "J":
+                edge, size = ("N" if pos == "N" else "S"), G.nx
+            else:
+                edge, size = ("E" if pos == "N" else "W"), G.ny
+            lo, hi = 0, -1
+            rest = items[1:]
+            if rest and ":" in rest[0] and "=" in rest[0]:
+                # the extent; its order marks the orientation only
+                a, b = (_obc_extent(t, size)
+                        for t in rest[0].split("=", 1)[1].split(":"))
+                lo, hi = min(a, b), max(a, b)
+                rest = rest[1:]
+            schemes = [it.upper() for it in rest if "=" not in it]
+            extra = [sch for sch in schemes if sch not in SCHEMES]
+            if extra:
+                raise NotImplementedError(
+                    f"OBC_SEGMENT_{n:03d}: the scheme tokens {extra} are "
+                    f"not ported (only {', '.join(SCHEMES)})")
+            dvals = _obc_data(pf, n, edge, lo, hi, G, input_dir, obc_ts, m)
+            segs.append(OBCSegment(
+                edge=edge, lo=lo, hi=hi,
+                scheme="+".join(schemes) if schemes else "FLATHER",
+                eta_ext=dvals.get("SSH", 0.0),
+                vel_ext=dvals.get("U" if edge in ("E", "W") else "V", 0.0),
+                T_ext=dvals.get("TEMP"), S_ext=dvals.get("SALT")))
+            continue
+        kv = dict(item.split("=", 1) for item in spec.split(","))
+        lo, hi = int(kv.get("LO", 0)), int(kv.get("HI", -1))
+        edge = kv["EDGE"].strip().upper()
+        dvals = _obc_data(pf, n, edge, lo, hi, G, input_dir, obc_ts, m)
+        segs.append(OBCSegment(
+            edge=edge, lo=lo, hi=hi,
+            scheme=kv.get("SCHEME", "FLATHER").strip().upper(),
+            eta_ext=float(kv.get("ETA", dvals.get("SSH", 0.0))),
+            vel_ext=float(kv.get("VEL", dvals.get(
+                "U" if edge in ("E", "W") else "V", 0.0))),
+            T_ext=float(kv["TEMP"]) if "TEMP" in kv else dvals.get("TEMP"),
+            S_ext=float(kv["SALT"]) if "SALT" in kv else dvals.get("SALT"),
+            nudge_timescale=float(kv.get("TAU", 3600.0))))
+    return segs
+
+
+def _dome_segments(pf, segs, G, gv, ale, nz, max_depth, f0, m):
+    """OBC_USER_CONFIG = DOME: the SPECIFIED segments with the steady
+    constant-Ri inflow and its layer temperatures (DOME_set_OBC_data);
+    in an ALE coordinate sampled in depth on the local column."""
+    inflow_lon = pf.get("DOME_INFLOW_LON", float, default=1000.0,
+                        units="km", module="MOM_grid_init")
+    rlay = gv.Rlay.cpu().numpy().astype(np.float64)
+    drho_dt = pf.get("DRHO_DT", float, default=-0.2, units="kg m-3 degC-1",
+                     module="MOM_EOS")
+    t_top = pf.get("DOME_T_LIGHT", float, default=25.0, units="degC",
+                   module=m)
+    t_prof = t_top + (rlay - rlay[0]) / drho_dt
+    lonT = G.geoLonT.cpu().numpy().astype(np.float64)
+    out = []
+    for seg in segs:
+        if "SPECIFIED" not in seg.scheme.upper():
+            out.append(seg)
+            continue
+        fsl, csl = segment_slices(seg.edge, seg.lo, seg.hi, G.ny, G.nx)
+        x_face = lonT[fsl]
+        kw = dict(
+            density_range=pf.get("DENSITY_RANGE", float, default=2.0,
+                                 units="kg m-3", module="MOM_coord_init"),
+            d_edge=pf.get("DOME_INFLOW_THICKNESS", float, default=300.0,
+                          units="m", module=m),
+            ri_trans=pf.get("DOME_INFLOW_RI_TRANS", float,
+                            default=1.0 / 3.0, module=m),
+            f_inflow=pf.get("DOME_INFLOW_F", float, default=f0, units="s-1",
+                            module=m),
+            inflow_lon=inflow_lon)
+        if ale.mode != LAYER:
+            # in depth on the local column (the reference remaps segment
+            # data onto the local grid)
+            d_face = G.bathyT.cpu().numpy().astype(np.float64)[csl]
+            v_prof, rc, _ = user_cases.dome_inflow_z(
+                nz, x_face, d_face, max_depth, gv.g_earth, gv.rho0, **kw)
+            t_seg = t_top + kw["density_range"] * (1.0 + rc) / drho_dt
+        else:
+            v_prof, _ = user_cases.dome_inflow(nz, x_face, gv.g_earth,
+                                               gv.rho0, **kw)
+            t_seg = t_prof
+        out.append(seg._replace(
+            vel_profile=v_prof, T_profile=t_seg,
+            S_profile=np.full(nz, pf.get(
+                "S_REF", float, default=35.0, units="ppt",
+                module="MOM_state_initialization"))))
+    return out
+
+
+def _open_boundaries(pf, G, gv, ale, nz, max_depth, dtype, device,
+                     input_dir):
+    """(OBCParams or None, the file and analytic series of the segment
+    data as (key, slice, series)): the reference's MOM_open_boundary
+    block, config_driver.py:719-938."""
+    m = "MOM_open_boundary"
+    obc_ts = []
+    segs = _obc_segments(pf, G, input_dir, obc_ts, m)
+    if not segs:
+        return None, obc_ts
+    # the analytic segment data of OBC_USER_CONFIG (MOM_boundary_update)
+    user_cfg = pf.get("OBC_USER_CONFIG", str, default="", module=m,
+                      desc="Analytic segment data: Kelvin, shelfwave "
+                      "(time series) or DOME (steady per-layer inflow)")
+    if user_cfg:
+        f0 = pf.get("F_0", float, default=0.0, units="s-1",
+                    module="MOM_grid_init")
+        if user_cfg == "Kelvin":
+            obc_ts.extend(user_cases.kelvin_obc_series(
+                segs, G, gv.g_earth, f0,
+                ssh_amp=pf.get("KELVIN_WAVE_SSH_AMP", float, default=1.0,
+                               units="m", module=m),
+                wave_period=pf.get("KELVIN_WAVE_PERIOD", float,
+                                   default=12.42 * 3600.0, units="s",
+                                   module=m)))
+        elif user_cfg == "shelfwave":
+            obc_ts.extend(user_cases.shelfwave_obc_series(
+                segs, G, f0,
+                amp=pf.get("SHELFWAVE_AMPLITUDE", float, default=0.1,
+                           units="m s-1", module=m),
+                lx=pf.get("SHELFWAVE_X_WAVELENGTH", float, default=100.0,
+                          units="km", module=m),
+                ly=pf.get("SHELFWAVE_Y_LENGTH_SCALE", float, default=50.0,
+                          units="km", module=m),
+                y_mode=pf.get("SHELFWAVE_Y_MODE", float, default=1.0,
+                              module=m),
+                lenlat=pf.get("LENLAT", float, default=1000.0, units="km",
+                              module="MOM_grid_init")))
+        elif user_cfg == "DOME":
+            segs = _dome_segments(pf, segs, G, gv, ale, nz, max_depth, f0,
+                                  m)
+        else:
+            raise NotImplementedError(f"OBC_USER_CONFIG = {user_cfg!r} is "
+                                      "not ported (only Kelvin, shelfwave, "
+                                      "DOME)")
+    res_in = pf.get("OBC_TRACER_RESERVOIR_LENGTH_SCALE_IN", float,
+                    default=0.0, units="m", module=m,
+                    desc="Reservoir memory length for inflow")
+    res_out = pf.get("OBC_TRACER_RESERVOIR_LENGTH_SCALE_OUT", float,
+                     default=0.0, units="m", module=m)
+    return build_obc(segs, G.ny, G.nx, dtype, res_len_in=res_in,
+                     res_len_out=res_out, nz=nz, device=device), obc_ts
+
+
+def _circle_obcs(pf, G, state, nz, m):
+    """THICKNESS_CONFIG = circle_obcs: interfaces raised over a disk
+    (circle_obcs_initialize_thickness, circle_obcs_initialization.F90:
+    100-117), in the working precision's numpy as the reference."""
+    diskrad = pf.get("DISK_RADIUS", float, module=m,
+                     desc="Radius of the elevated disk (grid units)")
+    ic_amp = pf.get("DISK_IC_AMPLITUDE", float, default=5.0, units="m",
+                    module=m)
+    lon = G.geoLonT.cpu().numpy()
+    lat = G.geoLatT.cpu().numpy()
+    lon_c = 0.5 * (lon.min() + lon.max())
+    lat_c = 0.5 * (lat.min() + lat.max())
+    rad = np.sqrt((lon - lon_c) ** 2 + (lat - lat_c) ** 2) / diskrad
+    rad = np.minimum(rad, 1.0) * np.pi
+    bell = 0.5 * (1.0 + np.cos(rad))
+    h = state.h.cpu().numpy().copy()
+    if nz == 1:
+        h[0] += ic_amp * bell
+    else:
+        for k in range(nz):
+            h[k] -= bell * ic_amp * (2 * (k + 1) - nz)
+    return torch.tensor(np.maximum(h, 1e-10), dtype=state.h.dtype,
+                        device=state.h.device)
+
+
 class _ForcingProvider:
-    """Model time [s] -> Forcing: the hurricane's stress, the file
-    records of wind (A-grid stress averaged to the C-grid faces) and of
-    the buoyancy fluxes, on the base forcing (the reference's
-    forcing_provider, config_driver.py:1811-1876, without open
-    boundaries).  The files' times are days."""
+    """Model time [s] -> Forcing: the open boundaries' segment series,
+    the hurricane's stress, the file records of wind (A-grid stress
+    averaged to the C-grid faces) and of the buoyancy fluxes, on the base
+    forcing (the reference's forcing_provider, config_driver.py:
+    1811-1876).  The files' times are days."""
+
+    _OBC_NAMES = {"SSH": "eta_ext", "U": "uvel_ext", "V": "vvel_ext",
+                  "TEMP": "T_ext", "SALT": "S_ext"}
 
     def __init__(self, base: Forcing, G, wind_fn, wind_ts, buoy_ts, dtype,
-                 device):
+                 device, obc=None, obc_ts=()):
         self.base, self.G = base, G
         self.wind_fn, self.wind_ts, self.buoy_ts = wind_fn, wind_ts, buoy_ts
         self.dtype, self.device = dtype, device
+        self.obc_ts = list(obc_ts)
+        # host copies of the exterior data the segment series write into
+        self.obc_base = None
+        if self.obc_ts:
+            def host(t):
+                return t.cpu().numpy().astype(np.float64)
+            zero = np.zeros((G.ny, G.nx))
+            self.obc_base = {
+                "SSH": host(obc.eta_ext), "U": host(obc.uvel_ext),
+                "V": host(obc.vvel_ext),
+                "TEMP": host(obc.T_ext) if obc.T_ext is not None else zero,
+                "SALT": host(obc.S_ext) if obc.S_ext is not None else zero}
+
+    def _obc_at(self, t_days) -> OBCData:
+        arrs = {k: v.copy() for k, v in self.obc_base.items()}
+        used = []
+        for key, sl, ts in self.obc_ts:
+            arrs[key][sl] = ts.at_time(t_days)
+            if key not in used:
+                used.append(key)
+        return OBCData(**{self._OBC_NAMES[k]: torch.tensor(
+            arrs[k], dtype=self.dtype, device=self.device) for k in used})
 
     def _override(self, ts, t_days, bmap, mask=None):
         return data_override(ts, t_days, bmap, mask, dtype=self.dtype,
@@ -573,6 +856,7 @@ class _ForcingProvider:
         G = self.G
         mech, buoy = self.base.mech, self.base.buoy
         t_days = float(t_seconds) / 86400.0
+        obc_data = self._obc_at(t_days) if self.obc_ts else None
         if self.wind_ts is not None:
             fx, fy, bmap = self.wind_ts
             tx_t = self._override(fx, t_days, bmap)
@@ -596,7 +880,7 @@ class _ForcingProvider:
                 upd["fw_flux"] = self._override(fw_ts, t_days, bmap,
                                                 G.mask2dT)
             buoy = buoy.replace(**upd)
-        return Forcing(mech=mech, buoy=buoy)
+        return Forcing(mech=mech, buoy=buoy, obc_data=obc_data)
 
 
 def build_model_from_params(pf: ParamFile, *, dtype=torch.float32,
@@ -644,7 +928,9 @@ def build_model_from_params(pf: ParamFile, *, dtype=torch.float32,
         nfilter = int(np.ceil(abs(dt_filt) * nstep)) if dt_filt < 0 \
             else int(np.ceil(dt_filt / (dt / nstep)))
         bt = BTParams(nstep=nstep, nfilter=max(1, nfilter),
-                      bebt=pf.get("BEBT", float, default=0.2, module=m))
+                      bebt=pf.get("BEBT", float, default=0.2, module=m),
+                      use_bt_cont=pf.get("USE_BT_CONT_TYPE", bool,
+                                         default=False, module=m))
     else:
         # the unsplit steppers: no barotropic solver
         bt = BTParams(nstep=1, nfilter=0)
@@ -766,13 +1052,16 @@ def build_model_from_params(pf: ParamFile, *, dtype=torch.float32,
             ale = ALEParams(mode=ZSTAR, dz_nominal=tuple(dz),
                             scheme=remap_scheme)
 
+    obc, obc_ts = _open_boundaries(pf, G, gv, ale, nz, max_depth, dtype,
+                                   device, input_dir)
     tfc = _tracer_packages(pf)
 
     params = MOMParams(
         dyn=dyn, thermo_enabled=use_thermo, eos_name=eos_name,
         diabatic=diab, ale=ale, hor_visc=hv, gm=gm, meke=meke,
         mlrestrat=mlr, khtr=khtr, khtr_n_sub=n_sub_tr,
-        n_dyn_per_thermo=n_dyn_per_thermo, tfc=tfc, unsplit=unsplit,
+        n_dyn_per_thermo=n_dyn_per_thermo, tfc=tfc, obc=obc,
+        unsplit=unsplit,
         unsplit_scheme=unsplit_scheme,
         tracer_advect_sub=pf.get("TRACER_ADVECT_SUB", int,
                                  default=max(2, n_dyn_per_thermo),
@@ -787,11 +1076,13 @@ def build_model_from_params(pf: ParamFile, *, dtype=torch.float32,
     # or a front and uniform S_REF under thermodynamics -------------------
     m = "MOM_state_initialization"
     thick_cfg = _one_of(pf, "THICKNESS_CONFIG", "uniform",
-                        ("uniform", "sloshing", "internal_wave", "gwave",
-                         "soliton", "phillips"), m)
+                        ("uniform", "circle_obcs", "sloshing",
+                         "internal_wave", "gwave", "soliton", "phillips"), m)
     state = init_state_resting(G, gv, np.full(nz, max_depth / nz),
                                dtype=dtype, with_thermo=use_thermo)
-    if thick_cfg != "uniform":
+    if thick_cfg == "circle_obcs":
+        state = state.replace(h=_circle_obcs(pf, G, state, nz, m))
+    elif thick_cfg != "uniform":
         state = state.replace(**_displaced(pf, thick_cfg, G, gv, state,
                                            max_depth, dtype, device))
     if meke is not None:
@@ -965,14 +1256,19 @@ def build_model_from_params(pf: ParamFile, *, dtype=torch.float32,
                                            t_restore=t_restore,
                                            restore_rate=restore_rate))
     provider = None
-    if wind_fn is not None or wind_ts is not None or buoy_ts is not None:
+    if wind_fn is not None or wind_ts is not None or buoy_ts is not None \
+            or obc_ts:
         provider = _ForcingProvider(forcing, G, wind_fn, wind_ts, buoy_ts,
-                                    dtype, device)
+                                    dtype, device, obc=obc, obc_ts=obc_ts)
         forcing = provider(0.0)
 
     if tfc is not None:
         state = state.replace(tr=tfc.init_tracers(tuple(state.h.shape), dtype,
                                                   device))
+    if obc is not None and obc.res_len_in > 0.0 and use_thermo:
+        # the segments' tracer reservoirs start from the initial state
+        state = state.replace(obc_res_T=state.T.clone(),
+                              obc_res_S=state.S.clone())
 
     # a run directory's MOM_input also holds the driver's own keys
     from mom6_tpu_torch.drivers.solo import driver_keys

@@ -108,13 +108,16 @@ class DynStepper(_Stepper):
 
 class MOMStepper(_Stepper):
     """Advances an OceanState by ``cycles_per_call`` thermo cycles of
-    core/mom.py::step_mom; the mechanical and the buoyancy forcing are
-    buffers."""
+    core/mom.py::step_mom; the mechanical and the buoyancy forcing and
+    the open boundaries' data are buffers."""
 
     def __init__(self, G, GV, params: MOMParams, forcing: Forcing,
                  cycles_per_call: int = 1):
-        super().__init__({"G": G, "GV": GV, "mech": forcing.mech,
-                          "buoy": forcing.buoy})
+        parts = {"G": G, "GV": GV, "mech": forcing.mech,
+                 "buoy": forcing.buoy}
+        if forcing.obc_data is not None:
+            parts["obc_data"] = forcing.obc_data
+        super().__init__(parts)
         self.params = params
         self.cycles_per_call = cycles_per_call
 
@@ -122,7 +125,9 @@ class MOMStepper(_Stepper):
         """(G, GV, forcing) built from the module's current buffers."""
         return (self._rebuilt("G"), self._rebuilt("GV"),
                 Forcing(mech=self._rebuilt("mech"),
-                        buoy=self._rebuilt("buoy")))
+                        buoy=self._rebuilt("buoy"),
+                        obc_data=self._rebuilt("obc_data")
+                        if "obc_data" in self._parts else None))
 
     def forward(self, state):
         G, GV, forcing = self.configuration()
@@ -681,7 +686,7 @@ def _controlled(f_seg, ctrl, state, G, GV, interval, extract_surface_state):
     b = b.replace(heat_flux=add(b.heat_flux, h_adj))
     if fw_adj is not None:
         b = b.replace(fw_flux=add(b.fw_flux, fw_adj))
-    return Forcing(mech=f_seg.mech, buoy=b)
+    return f_seg.replace(buoy=b)
 
 
 def _run_offline(archive, rundir, setup, dt_cycle, stats_every):

@@ -1,27 +1,78 @@
 """Analytic idealized user cases
-(twin of mom6_tpu/drivers/user_cases.py: the Neverworld topography and
-the translating idealized hurricane; and of
+(twin of mom6_tpu/drivers/user_cases.py; and of
 configs/seasonal_gyre/make_forcing.py::write_forcing).
 
 Host numpy, evaluated in float64 on the grid's coordinates as the
-reference does: ``neverworld_depth`` (Neverworld_initialization.F90:
-63-82) at init, ``hurricane_wind_fn`` (Idealized_Hurricane.F90:336-456,
-the Holland (1980) profile with the Zhang & Uhlhorn (2012) inflow angle)
-a callable the forcing provider evaluates per segment.
+reference does: the Kelvin, shelfwave, DOME and Neverworld topographies
+at init; the open boundaries' analytic data of OBC_USER_CONFIG
+(MOM_boundary_update.F90:203): the Kelvin and shelf waves as series the
+forcing provider evaluates per segment, the DOME embayment's steady
+per-layer inflow; and ``hurricane_wind_fn`` (Idealized_Hurricane.F90:
+336-456, the Holland (1980) profile with the Zhang & Uhlhorn (2012)
+inflow angle), a callable the forcing provider evaluates per segment.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from mom6_tpu_torch.core.open_boundary import segment_slices
 from mom6_tpu_torch.io.netcdf import NCWriter
 
-__all__ = ["neverworld_depth", "hurricane_wind_fn",
-           "write_seasonal_forcing"]
+__all__ = ["kelvin_depth", "shelfwave_depth", "dome_depth",
+           "neverworld_depth", "AnalyticSeries", "kelvin_obc_series",
+           "shelfwave_obc_series", "dome_inflow", "dome_inflow_z",
+           "hurricane_wind_fn", "write_seasonal_forcing"]
 
 
 def _host(t) -> np.ndarray:
     return t.detach().cpu().numpy().astype(np.float64)
+
+
+def kelvin_depth(nx, ny, lenlon, lenlat, max_depth, min_depth,
+                 coast_offset1=100.0, coast_offset2=10.0,
+                 coast_angle_deg=11.3):
+    """A coastal channel with angled coasts near both zonal ends
+    (Kelvin_initialize_topography, Kelvin_initialization.F90:155-199).
+    Lengths in km."""
+    x = ((np.arange(nx) + 0.5) / nx * lenlon)[None, :] * np.ones((ny, 1))
+    y = ((np.arange(ny) + 0.5) / ny * lenlat)[:, None] * np.ones((1, nx))
+    ang = np.deg2rad(coast_angle_deg)
+    D = np.full((ny, nx), max_depth)
+    south = (x > coast_offset1) & (
+        np.arctan2(y + coast_offset2, x - coast_offset1) < ang)
+    north = (x < lenlon - coast_offset1) & (
+        np.arctan2(lenlat + coast_offset2 - y,
+                   lenlon - coast_offset1 - x) < ang)
+    D = np.where(south | north, 0.5 * min_depth, D)
+    return np.clip(D, 0.5 * min_depth, max_depth)
+
+
+def shelfwave_depth(nx, ny, lenlat, max_depth, min_depth, ly=50.0):
+    """The exponential cross-shore shelf D = H0 exp(2 y / Ly)
+    (shelfwave_initialize_topography, shelfwave_initialization.F90:
+    118-137); y in km from the southern (coastal) wall."""
+    h0 = max(min_depth, 10.0)
+    y = ((np.arange(ny) + 0.5) / ny * lenlat)[:, None]
+    D = h0 * np.exp(2.0 * y / max(ly, 1e-3)) * np.ones((1, nx))
+    return np.minimum(D, max_depth)
+
+
+def dome_depth(nx, ny, lenlon, lenlat, max_depth, min_depth,
+               shelf_depth=600.0, shelf_edge_lat=600.0,
+               inflow_lon=1000.0, inflow_width=100.0, slope=0.01):
+    """DOME: a slope basin with a shelf embayment to the north through
+    which the dense water enters (DOME_initialize_topography,
+    DOME_initialization.F90:40-110).  Lengths in km; the slope in m of
+    depth per m of latitude."""
+    x = ((np.arange(nx) + 0.5) / nx * lenlon)[None, :] * np.ones((ny, 1))
+    y = ((np.arange(ny) + 0.5) / ny * lenlat)[:, None] * np.ones((1, nx))
+    basin = np.minimum(shelf_depth - slope * (y - shelf_edge_lat) * 1e3,
+                       max_depth)
+    in_bay = (x > inflow_lon) & (x < inflow_lon + inflow_width)
+    D = np.where(y < shelf_edge_lat, basin,
+                 np.where(in_bay, shelf_depth, 0.5 * min_depth))
+    return np.clip(D, 0.5 * min_depth, max_depth)
 
 
 def _spike(x, L):
@@ -60,6 +111,133 @@ def neverworld_depth(nx, ny, max_depth, roughness_amp=0.05,
          - roughness_amp * np.cos(14 * np.pi * x) * np.sin(14 * np.pi * y)
          - roughness_amp * np.cos(20 * np.pi * x) * np.cos(20 * np.pi * y))
     return np.maximum(D, 0.0) * max_depth
+
+
+class AnalyticSeries:
+    """A segment series whose records are computed: ``fn`` maps model
+    time [s] to the along-segment values (read like a
+    TimeSeriesField, with ``at_time`` in days)."""
+
+    def __init__(self, fn):
+        self._fn = fn
+
+    def at_time(self, t_days):
+        return self._fn(t_days * 86400.0)
+
+
+def kelvin_obc_series(segments, G, g_earth, f0, ssh_amp=1.0,
+                      wave_period=12.42 * 3600.0):
+    """A mode-0 coastal Kelvin wave at the W and S segments
+    (Kelvin_set_OBC_data, Kelvin_initialization.F90:265-345, coast angle
+    0): SSH = a exp(-f y / c) cos(w t) and the normal velocity
+    (c / D) a exp(-f y / c) sin(w t), c = sqrt(g D) the local external
+    wave speed.  Returns the provider's (key, slice, series) entries."""
+    bathy = _host(G.bathyT)
+    latT = _host(G.geoLatT)
+    lonT = _host(G.geoLonT)
+    y0 = latT.min() - 0.5 * (latT[1, 0] - latT[0, 0]) \
+        if G.ny > 1 else latT.min()
+    omega = 2.0 * np.pi / wave_period
+    out = []
+    for seg in segments:
+        if seg.edge not in ("W", "S"):
+            continue
+        fsl, csl = segment_slices(seg.edge, seg.lo, seg.hi, G.ny, G.nx)
+        if seg.edge == "W":
+            y_m = (latT[csl] - y0) * 1e3         # offshore distance [m]
+        else:
+            x0 = lonT.min() - 0.5 * (lonT[0, 1] - lonT[0, 0]) \
+                if G.nx > 1 else lonT.min()
+            y_m = (lonT[csl] - x0) * 1e3
+        D = np.maximum(bathy[csl], 1.0)
+        c = np.sqrt(g_earth * D)
+        decay = ssh_amp * np.exp(-abs(f0) * y_m / c)
+
+        def ssh_fn(t, decay=decay):
+            return decay * np.cos(omega * t)
+
+        def vel_fn(t, decay=decay, c=c, D=D):
+            return decay * np.sin(omega * t) * c / D
+
+        out.append(("SSH", csl, AnalyticSeries(ssh_fn)))
+        out.append(("U" if seg.edge in ("E", "W") else "V", fsl,
+                    AnalyticSeries(vel_fn)))
+    return out
+
+
+def shelfwave_obc_series(segments, G, f0, amp=0.1, lx=100.0, ly=50.0,
+                         y_mode=1.0, lenlat=None):
+    """A continental shelf wave entering at the W segments
+    (shelfwave_set_OBC_data, shelfwave_initialization.F90:139-215):
+    normal velocity amp e^{-alpha y} cos(l x - w t) (alpha sin(k y)
+    + k cos(k y)) / k, alpha = 1/Ly, l = 2 pi/Lx, k = j pi/LENLAT, and
+    the shelf-wave frequency w = 2 alpha f l / (k^2 + alpha^2 + l^2);
+    km units."""
+    latT = _host(G.geoLatT)
+    if lenlat is None:
+        lenlat = latT.max() - latT.min() + (latT[1, 0] - latT[0, 0])
+    alpha = 1.0 / max(ly, 1e-6)
+    ll = 2.0 * np.pi / max(lx, 1e-6)
+    kk = y_mode * np.pi / max(lenlat, 1e-6)
+    omega = 2.0 * alpha * f0 * ll / (kk * kk + alpha * alpha + ll * ll)
+    y0 = latT.min() - 0.5 * (latT[1, 0] - latT[0, 0])
+    out = []
+    for seg in segments:
+        if seg.edge != "W":
+            continue
+        fsl, _ = segment_slices(seg.edge, seg.lo, seg.hi, G.ny, G.nx)
+        y_km = latT[fsl] - y0
+        shape = np.exp(-alpha * y_km) * (
+            alpha * np.sin(kk * y_km) + kk * np.cos(kk * y_km)) / kk
+
+        def vel_fn(t, shape=shape):
+            return amp * shape * np.cos(-omega * t)
+
+        out.append(("U", fsl, AnalyticSeries(vel_fn)))
+    return out
+
+
+def dome_inflow(nz, x_face_km, g_earth, rho0, density_range=2.0,
+                d_edge=300.0, ri_trans=1.0 / 3.0, f_inflow=1.0e-4,
+                inflow_lon=1000.0):
+    """The geostrophic constant-Richardson inflow of the DOME embayment
+    (DOME_set_OBC_data, DOME_initialization.F90:420-460): layer k flows
+    south at v_k = -sqrt(D g') log((2 + Ri (1 + 2 rc)) / (2 - Ri)),
+    decaying east of the inflow edge over the deformation radius.
+    Returns (v (nz, n_face) [m s-1, negative into the domain], the
+    deformation radius [km])."""
+    gp = g_earth / rho0 * density_range
+    def_rad = np.sqrt(d_edge * gp) / abs(f_inflow)       # [m]
+    rc = -1.0 + np.arange(nz) / max(nz - 1, 1)           # -1 light .. 0 dense
+    v_k = -np.sqrt(d_edge * gp) * np.log(
+        (2.0 + ri_trans * (1.0 + 2.0 * rc)) / (2.0 - ri_trans))
+    xdist = np.maximum(np.asarray(x_face_km) - inflow_lon, 0.0) * 1e3
+    prof = np.exp(-2.0 * xdist / def_rad)
+    return v_k[:, None] * prof[None, :], def_rad / 1e3
+
+
+def dome_inflow_z(nz, x_face_km, depth_face, max_depth, g_earth, rho0,
+                  density_range=2.0, d_edge=300.0, ri_trans=1.0 / 3.0,
+                  f_inflow=1.0e-4, inflow_lon=1000.0):
+    """:func:`dome_inflow` in depth on the local z* column of each face,
+    as the reference remaps segment data onto the local grid
+    (update_OBC_segment_data): the inflow fills the bottom ``d_edge``
+    metres, rc = -min(hb / d_edge, 1) of the height above the bottom hb.
+    Returns (v (nz, n_face), rc (nz, n_face), the deformation radius
+    [km])."""
+    gp = g_earth / rho0 * density_range
+    def_rad = np.sqrt(d_edge * gp) / abs(f_inflow)
+    D = np.asarray(depth_face, np.float64)[None, :]
+    cum = np.cumsum(np.full(nz, max_depth / nz))
+    e = np.minimum(np.concatenate([[0.0], cum])[:, None], D)  # interfaces
+    centers = 0.5 * (e[1:] + e[:-1])                          # (nz, nf)
+    hb = np.maximum(D - centers, 0.0)
+    rc = -np.minimum(hb / max(d_edge, 1e-3), 1.0)
+    v_k = -np.sqrt(d_edge * gp) * np.log(
+        (2.0 + ri_trans * (1.0 + 2.0 * rc)) / (2.0 - ri_trans))
+    xdist = np.maximum(np.asarray(x_face_km) - inflow_lon, 0.0) * 1e3
+    prof = np.exp(-2.0 * xdist / def_rad)
+    return v_k * prof[None, :], rc, def_rad / 1e3
 
 
 _HURR_DEFAULTS = dict(

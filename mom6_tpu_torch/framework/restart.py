@@ -18,13 +18,15 @@ save_restart, restore_state, query_initialized):
 
 Divergence from the reference (its registry, solo.py:217-231):
 ``register_state`` registers exactly the fields the state carries: h, u,
-v, uh, vh, uhtr, vhtr; T and S; ``kv_shear`` and ``E_meke`` where they
-are allocated; and every tensor of ``state.tr``, the packages' 0-dim
-clocks included (as ``tr_<name>``).  The reference registers
-``kv_shear`` whenever KPP, ePBL or shear mixing is on, although the
-layered coordinate does not allocate it (a layered restore then raises
-KeyError), and registers neither ``E_meke`` nor the passive tracers, so
-a split MEKE or tracer run does not equal a straight one.  Its
+v, uh, vh, uhtr, vhtr; T and S; ``kv_shear``, ``E_meke`` and the open
+boundaries' tracer reservoirs ``obc_res_T``/``obc_res_S`` where they are
+allocated; and every tensor of ``state.tr``, the packages' 0-dim clocks
+included (as ``tr_<name>``).  The reference registers ``kv_shear``
+whenever KPP, ePBL or shear mixing is on, although the layered
+coordinate does not allocate it (a layered restore then raises
+KeyError), and registers neither ``E_meke``, the passive tracers nor the
+reservoirs, so a split MEKE, tracer or reservoir run does not equal a
+straight one (its reservoirs restart from the initial T and S).  Its
 ``restore_state`` also casts to float32 unless told otherwise, so its
 float64 runs restart from float32 values; here the template's dtype
 holds.  0-dim tensors are stored with shape (1,), since NetCDF-3 scalar
@@ -46,7 +48,7 @@ __all__ = ["RestartRegistry", "TRACER_PREFIX", "restart_differences"]
 
 TRACER_PREFIX = "tr_"
 _BASE = ("h", "u", "v", "uh", "vh", "uhtr", "vhtr")
-_OPTIONAL = ("T", "S", "kv_shear", "E_meke")
+_OPTIONAL = ("T", "S", "kv_shear", "E_meke", "obc_res_T", "obc_res_S")
 
 
 @dataclasses.dataclass

@@ -6,8 +6,10 @@ E_meke, kv_shear and the passive tracers ``tr`` with the packages'
 ``BuoyancyForcing``) and ``DynParams`` or ``MOMParams`` (with the
 ``BTParams``, ``ALEParams``, ``HorViscParams``, ``GMParams``,
 ``MEKEParams``, ``MLRestratParams``, ``DiabaticParams``,
-``DiffusivityParams`` and ``UnsplitParams`` they nest, and the tracer
-packages of its ``TracerFlowControl``) are exported with :func:`export`
+``DiffusivityParams``, ``UnsplitParams`` and ``OBCParams`` they nest,
+and the tracer packages of its ``TracerFlowControl``), the open
+boundaries' ``OBCData`` and the BT_cont curves ``BTCont`` are exported
+with :func:`export`
 into plain dictionaries of numpy arrays and Python scalars (``np.asarray``
 on each array), and the ``load_*`` functions turn those into the port's
 objects on a given device (the card unless the caller asks for the CPU)
@@ -26,9 +28,11 @@ import torch
 
 from mom6_tpu_torch.ale.ale import ALEParams
 from mom6_tpu_torch.core.barotropic import BTParams
+from mom6_tpu_torch.core.continuity_ppm import BTCont
 from mom6_tpu_torch.core.dynamics_split_rk2 import DynParams, MechForcing
 from mom6_tpu_torch.core.dynamics_unsplit import UnsplitParams
 from mom6_tpu_torch.core.mom import Forcing, MOMParams
+from mom6_tpu_torch.core.open_boundary import RX_MAX, OBCData, OBCParams
 from mom6_tpu_torch.core.state import OceanState
 from mom6_tpu_torch.framework.device import DEFAULT_DEVICE, resolve_device
 from mom6_tpu_torch.grid.grid import Grid
@@ -44,7 +48,8 @@ from mom6_tpu_torch.physics.vertical.set_diffusivity import DiffusivityParams
 from mom6_tpu_torch.tracers import packages
 
 __all__ = ["export", "load_grid", "load_vgrid", "load_state",
-           "load_forcing", "load_params", "load_tfc", "load_all"]
+           "load_forcing", "load_params", "load_tfc", "load_obc",
+           "load_obc_data", "load_bt_cont", "load_all"]
 
 # reference fields with no counterpart in the port that may carry a
 # value: each only tunes a subsystem that is not ported (the wide-halo
@@ -63,6 +68,9 @@ _DROPPED = {
     "DiffusivityParams": {"bbl_cdrag", "bbl_mixing_max_decay", "von_karm"},
     "HorViscParams": {"aniso_mode", "aniso_n"},
 }
+# reference fields whose value the port fixes as a constant: the
+# reference's value must be that constant
+_FIXED = {"OBCParams": {"rx_max": RX_MAX}}
 _PARAMS = {c.__name__: c for c in (DynParams, BTParams, MOMParams,
                                    ALEParams, HorViscParams, GMParams,
                                    MEKEParams, MLRestratParams,
@@ -102,11 +110,17 @@ def _fields_for(cls, d: dict) -> dict:
     other entry that carries data the port would silently drop."""
     names = {f.name for f in dataclasses.fields(cls)}
     dropped = _DROPPED.get(d.get("__type__"), set())
+    fixed = _FIXED.get(d.get("__type__"), {})
     out = {}
     for k, v in d.items():
         if k == "__type__":
             continue
-        if k in names:
+        if k in fixed:
+            if v != fixed[k]:
+                raise NotImplementedError(
+                    f"{d.get('__type__')}.{k} = {v}: the port fixes it "
+                    f"at {fixed[k]}")
+        elif k in names:
             out[k] = v
         elif v is not None and k not in dropped:
             raise NotImplementedError(
@@ -166,27 +180,50 @@ def load_tfc(d: dict) -> packages.TracerFlowControl:
     return packages.TracerFlowControl(pkgs)
 
 
+def load_obc(d: dict, device=DEFAULT_DEVICE,
+             dtype=torch.float32) -> OBCParams:
+    return OBCParams(**_tensors(OBCParams, d, device, dtype))
+
+
+def load_obc_data(d: dict, device=DEFAULT_DEVICE,
+                  dtype=torch.float32) -> OBCData:
+    return OBCData(**_tensors(OBCData, d, device, dtype))
+
+
+def load_bt_cont(d: dict, device=DEFAULT_DEVICE,
+                 dtype=torch.float32) -> BTCont:
+    return BTCont(**{k: torch.tensor(np.array(v), dtype=dtype,
+                                     device=resolve_device(device))
+                     for k, v in d.items() if k != "__type__"})
+
+
 def load_forcing(d: dict, device=DEFAULT_DEVICE, dtype=torch.float32):
     """A MechForcing, or a Forcing with its mechanical and buoyancy
-    parts, as the reference's container was."""
+    parts and the open boundaries' data, as the reference's container
+    was."""
     if d.get("__type__") != "Forcing":
         return MechForcing(**_tensors(MechForcing, d, device, dtype))
     kw = _fields_for(Forcing, d)
     return Forcing(
         mech=MechForcing(**_tensors(MechForcing, kw["mech"], device, dtype)),
         buoy=BuoyancyForcing(**_tensors(BuoyancyForcing, kw["buoy"], device,
-                                        dtype)))
+                                        dtype)),
+        obc_data=None if kw.get("obc_data") is None
+        else load_obc_data(kw["obc_data"], device, dtype))
 
 
-def load_params(d: dict):
-    """DynParams or MOMParams (and the parameter containers they nest).
-    Arrays become tuples; an unported subsystem that is set stays a
-    dict, and the port raises when it meets it."""
+def load_params(d: dict, device=DEFAULT_DEVICE, dtype=torch.float32):
+    """DynParams or MOMParams (and the parameter containers they nest;
+    an OBCParams' arrays as tensors on ``device`` in ``dtype``).  Arrays
+    become tuples; an unported subsystem that is set stays a dict, and
+    the port raises when it meets it."""
     cls = _PARAMS[d["__type__"]]
     kw = {}
     for k, v in _fields_for(cls, d).items():
         if isinstance(v, dict) and v.get("__type__") in _PARAMS:
-            v = load_params(v)
+            v = load_params(v, device, dtype)
+        elif isinstance(v, dict) and v.get("__type__") == "OBCParams":
+            v = load_obc(v, device, dtype)
         elif isinstance(v, dict) and v.get("__type__") == \
                 "TracerFlowControl":
             v = load_tfc(v)
@@ -201,5 +238,6 @@ def load_all(G, GV, state, params, forces, device=DEFAULT_DEVICE,
     """(G, GV, state, params, forces) of the port from the exported
     reference dictionaries."""
     return (load_grid(G, device, dtype), load_vgrid(GV, device, dtype),
-            load_state(state, device, dtype), load_params(params),
+            load_state(state, device, dtype),
+            load_params(params, device, dtype),
             load_forcing(forces, device, dtype))

@@ -136,7 +136,7 @@ def test_tracer_batch_names():
 @pytest.mark.parametrize("text,match", [
     ("USE_REGIONAL_DYES = True\nNUM_DYE_TRACERS = 2\n"
      "DYE_SOURCE_MINLON = 1.0,2.0,3.0\n", "DYE_SOURCE_MINLON"),
-    ("THICKNESS_CONFIG = circle_obcs\n", "THICKNESS_CONFIG"),
+    ("THICKNESS_CONFIG = benchmark\n", "THICKNESS_CONFIG"),
     ("TS_CONFIG = benchmark\n", "TS_CONFIG"),
     ("GRID_CONFIG = spherical\nUSE_GENERIC_TRACER = True\n",
      "USE_GENERIC_TRACER"),

@@ -204,21 +204,17 @@ def test_btstep_parity(basin, x_first, nsteps):
     _close(ref, got, tol=1e-4)
 
 
-@pytest.mark.parametrize("flag", ["use_bt_cont", "dynamic_psurf",
-                                  "sal_scalar", "wide_halo", "obc"])
+@pytest.mark.parametrize("flag", ["dynamic_psurf", "sal_scalar",
+                                  "wide_halo"])
 def test_btstep_unported_options_raise(basin, flag):
     G_ref, GV_ref, G, GV, x = basin
     bt = tbt.BTParams(nstep=4, nfilter=1)
-    kw = {}
-    if flag == "obc":
-        kw["obc"] = object()
-    else:
-        bt = bt.replace(**{flag: {"sal_scalar": 0.1, "wide_halo": -1}
-                           .get(flag, True)})
+    bt = bt.replace(**{flag: {"sal_scalar": 0.1, "wide_halo": -1}
+                       .get(flag, True)})
     z3, z2 = torch.zeros(NZ, NY, NX), torch.zeros(NY, NX)
     with pytest.raises(NotImplementedError):
         tbt.btstep(z3, z3, z2, z3, z3, z3 + 1, z3, z3, z3, z3, z3, z2,
-                   1200.0, G, GV, bt, **kw)
+                   1200.0, G, GV, bt)
 
 
 def test_set_dtbt_and_weights_parity(basin):

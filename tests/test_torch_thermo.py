@@ -411,11 +411,13 @@ def test_run_segment_counts_thermo_cycles(tmp_path):
 @pytest.mark.parametrize("part,field", [("forcing", "tr_fluxes"),
                                         ("forcing", "oda_inc"),
                                         ("buoy", "salt_left_behind"),
-                                        ("state", "obc_res_T")])
+                                        ("state", "obc_res_T"),
+                                        ("state", "du_av_inst")])
 def test_interop_rejects_unported_fields(part, field):
     """A field the port does not carry raises when it is set; the
     buoyancy forcing's salt_left_behind is carried (it only feeds the
-    brine plume, which raises)."""
+    brine plume, which raises), and so are the open boundaries' tracer
+    reservoirs obc_res_T/S."""
     G, GV, st, p, f = ref_thermo_gyre(8, 6, 2)
     z = jnp.zeros((6, 8))
     if part == "forcing":
@@ -426,8 +428,12 @@ def test_interop_rejects_unported_fields(part, field):
         d = interop.export(f._replace(buoy=f.buoy._replace(**{field: z})))
         got = interop.load_forcing(d, device="cpu")
         assert torch.equal(getattr(got.buoy, field), torch.zeros(6, 8))
+    elif field == "obc_res_T":
+        d = interop.export(st.replace(**{field: jnp.ones((2, 6, 8))}))
+        got = interop.load_state(d, device="cpu")
+        assert torch.equal(getattr(got, field), torch.ones(2, 6, 8))
     else:
-        d = interop.export(st.replace(**{field: jnp.zeros((3, 6, 8))}))
+        d = interop.export(st.replace(**{field: jnp.zeros((6, 8))}))
         with pytest.raises(NotImplementedError, match=field):
             interop.load_state(d, device="cpu")
 
@@ -436,7 +442,7 @@ def test_interop_rejects_unported_fields(part, field):
                                          ("meke", MEKEParams(ku_coeff=0.5)),
                                          ("khtr_bl", 100.0),
                                          ("diabatic_first", True),
-                                         ("sponge", 1), ("obc", 1),
+                                         ("sponge", 1),
                                          ("sppt", 1),
                                          ("stanley_coeff", 0.5)])
 def test_step_mom_unported_options_raise(gyre, field, value):

@@ -2,8 +2,9 @@
 tests/test_pf_pierced.py and tests/test_user_configs.py (those of the
 configurations the port runs that pass on the reference: not
 test_seamount_resting_state_stays_slow nor
-test_neverworld_acc_is_eastward, which fail there), run through the
-PyTorch port.
+test_neverworld_acc_is_eastward, which fail there), and the open
+boundaries' gates of tests/test_obc.py, tests/test_obc_file_reservoir.py
+and tests/test_tc_ladder.py::TestTC3, run through the PyTorch port.
 
 Each gate builds its case through the port (the configuration's
 MOM_input, the test's parameter text, or the port's builders), runs it
@@ -27,6 +28,8 @@ from mom6_tpu_torch.core.barotropic import BTParams, set_dtbt
 from mom6_tpu_torch.core.dynamics_split_rk2 import (DynParams, MechForcing,
                                                     step_dynamics_split_rk2)
 from mom6_tpu_torch.core.mom import step_mom
+from mom6_tpu_torch.core.open_boundary import (OBCSegment, apply_obc,
+                                               build_obc)
 from mom6_tpu_torch.core.pressure_force import pressure_force_fv
 from mom6_tpu_torch.core.state import init_state_resting
 from mom6_tpu_torch.drivers.config_driver import build_model_from_params
@@ -763,6 +766,275 @@ def hurricane_cold_wake(device):
                 gate="north < SST0 - 0.05 and north < south", south=south)
 
 
+def _provider_cycles(ms, n, collect=None, offset=0.0):
+    """``n`` thermo cycles with the provider's forcing at the start of
+    each cycle plus ``offset`` cycles; ``collect(state, forcing)`` of each
+    new state, in a list."""
+    dt_cycle = ms.params.dyn.dt * ms.params.n_dyn_per_thermo
+    s, out = ms.state, []
+    for k in range(n):
+        f = ms.forcing_provider((k + offset) * dt_cycle)
+        with torch.inference_mode():
+            s = step_mom(s, f, ms.grid, ms.vgrid, ms.params)
+        if collect is not None:
+            out.append(collect(s, f))
+    return s, out
+
+
+def supercritical_steps_stably(device):
+    """configs/supercritical: 4 cycles with a 0.5 m/s inflow through the
+    west boundary stay finite and bounded
+    (test_user_configs.py::test_config_steps_stably[supercritical]; the
+    open boundaries exchange volume, so no mass check)."""
+    ms = build(device, "supercritical")
+    s = _cycles(ms, 4)
+    for f in ("h", "u", "v"):
+        assert bool(torch.isfinite(getattr(s, f)).all()), f
+    umax = float(s.u.abs().max())
+    assert umax < 5.0, umax
+    return dict(quantity="max|u| after 4 cycles [m/s]", measured=umax,
+                analytic=0.5, error=umax - 0.5, gate="finite, max|u| < 5")
+
+
+def kelvin_wave_trapped_at_coast(device):
+    """configs/kelvin: the SSH response of the mode-0 Kelvin wave decays
+    offshore at f/c (within 40%) and propagates with the coast on its
+    right (test_user_configs.py::test_kelvin_wave_trapped_at_coast)."""
+    period = 44714.0
+    n = int(round(period / 300.0)) + 30          # one period + spin-in
+    ms = build(device, "kelvin")
+    G = ms.grid
+    _, etas = _provider_cycles(ms, n, lambda s, f: _np(s.h.sum(0)))
+    eta_t = np.stack(etas[30:]) - _np(G.bathyT)[None]
+    icol = 6
+    amp = np.abs(eta_t[:, :, icol]).max(axis=0)
+    mask = _np(G.mask2dT)
+    wet = mask[:, icol] > 0.5
+    f0, c = 1.0e-4, np.sqrt(9.8 * 100.0)
+    y = _np(G.geoLatT)[:, icol] * 1e3
+    rows = np.where(wet & (amp > 1e-3 * amp.max()))[0][:16]
+    slope = np.polyfit(y[rows], np.log(amp[rows]), 1)[0]
+    assert abs(-slope / (f0 / c) - 1.0) <= 0.4, (slope, -f0 / c)
+    j0 = int(np.where((mask[:, 8] > 0.5) & (mask[:, 24] > 0.5))[0][0])
+    a, b = eta_t[:, j0, 8], eta_t[:, j0, 24]
+    xc = [np.corrcoef(a[:-L if L else None], b[L:])[0, 1]
+          for L in range(0, 40)]
+    lag = int(np.argmax(xc))
+    assert lag > 0, lag
+    return dict(quantity="offshore decay rate of the SSH amplitude [1/m]",
+                measured=-slope, analytic=f0 / c,
+                error=-slope / (f0 / c) - 1.0,
+                gate="within 40% of f/c, downstream lag > 0", lag=lag)
+
+
+def shelfwave_trapped_on_shelf(device):
+    """configs/shelfwave: after half a day the depth-mean response near
+    the coast is over 3 times that offshore
+    (test_user_configs.py::test_shelfwave_response_trapped_on_shelf)."""
+    ms = build(device, "shelfwave")
+    s, _ = _provider_cycles(ms, 144)
+    u, v = _np(s.u), _np(s.v)
+    speed = np.sqrt(u.mean(0) ** 2 + v.mean(0) ** 2)
+    ny = speed.shape[0]
+    near, far = speed[: ny // 4].mean(), speed[-ny // 4:].mean()
+    assert np.isfinite(speed).all()
+    assert near > 3.0 * far, (near, far)
+    return dict(quantity="near-shore over offshore speed", measured=near
+                / far, analytic=3.0, error=near / far - 3.0,
+                gate="> 3", near=near, far=far)
+
+
+def dome_inflow_enters_and_descends(device):
+    """configs/dome: the SPECIFIED inflow is southward and densest-
+    fastest, enters the domain (thickness-weighted v < -0.01 m/s at its
+    faces after 16 cycles) and cold water reaches the embayment's bottom
+    (test_user_configs.py::test_dome_inflow_enters_and_descends)."""
+    ms = build(device, "dome")
+    G, obc = ms.grid, ms.params.obc
+    assert obc is not None and obc.mask_v_spec is not None
+    vspec = _np(obc.vvel_spec)
+    msk = _np(obc.mask_v_spec) > 0.5
+    prof = vspec[:, msk]
+    assert prof.min() < -0.1
+    assert abs(prof[-1]).max() > abs(prof[0]).max()
+    s = _cycles(ms, 16)
+    v, h = _np(s.v), _np(s.h)
+    jf = np.where(msk.any(axis=1))[0][0]
+    cols = np.where(msk[jf])[0]
+    h_v = 0.5 * (h[:, jf, cols] + h[:, min(jf + 1, G.ny - 1), cols])
+    vw = (v[:, jf, cols] * h_v).sum() / max(h_v.sum(), 1e-30)
+    assert vw < -0.01, vw
+    t_bot = _np(s.T)[-1, G.ny - 1, 40:44].mean()
+    assert t_bot < 20.0 - 0.5, t_bot
+    return dict(quantity="thickness-weighted v at the inflow faces [m/s]",
+                measured=vw, analytic=float(prof.mean()),
+                error=vw - float(prof.mean()),
+                gate="vw < -0.01, bottom T in the bay < 19.5", t_bot=t_bot)
+
+
+def dome_plume_turns_west(device):
+    """configs/dome for 2 days (288 cycles): the dense plume has turned
+    west on the slope, bottom water west of the embayment cooled by more
+    than 0.2 degC (test_user_configs.py::test_dome_plume_turns_west)."""
+    ms = build(device, "dome")
+    G = ms.grid
+    s = _cycles(ms, 288)
+    dT_all = _np(s.T) - _np(ms.state.T)
+    lon = _np(G.geoLonT)[0]
+    slope_rows = slice(int(0.55 * G.ny), int(0.72 * G.ny))
+    west_cols = (lon > 500.0) & (lon < 950.0)
+    dT = dT_all[-1, slope_rows][:, west_cols]
+    assert dT.min() < -0.2, dT.min()
+    return dict(quantity="bottom cooling west of the bay [degC]",
+                measured=float(dT.min()), analytic=-0.2,
+                error=float(dT.min()) + 0.2, gate="< -0.2")
+
+
+def tidal_bay_file_forcing(device):
+    """configs/tidal_bay: the west boundary's SSH from obc_forcing.nc
+    pumps the bay, whose mid-point surface follows with an amplitude
+    ratio in [0.8, 1.05] and a lag under 1 radian over 1.5 M2 periods
+    (test_obc_file_reservoir.py::test_tidal_bay_file_forcing)."""
+    ms = build(device, "tidal_bay")
+    G = ms.grid
+    assert ms.params.obc is not None and ms.forcing_provider is not None
+    dtc = ms.params.dyn.dt * ms.params.n_dyn_per_thermo
+    m2 = 12.4206012 * 3600.0
+    n = int(1.5 * m2 / dtc)
+    bathy = G.bathyT
+
+    def collect(s, f):
+        return (float(s.h.sum(0)[12, 24] - bathy[12, 24]),
+                float(f.obc_data.eta_ext[12, 0]))
+    s, rec = _provider_cycles(ms, n, collect, offset=0.5)
+    eta_mid = np.asarray([r[0] for r in rec])
+    eta_f = np.asarray([r[1] for r in rec])
+    half = n // 3
+    amp_i = 0.5 * (eta_mid[half:].max() - eta_mid[half:].min())
+    amp_f = 0.5 * (eta_f[half:].max() - eta_f[half:].min())
+    assert bool(torch.isfinite(s.h).all())
+    assert 0.8 < amp_i / amp_f < 1.05, (amp_i, amp_f)
+    c = np.correlate(eta_mid[half:] - eta_mid[half:].mean(),
+                     eta_f[half:] - eta_f[half:].mean(), "full")
+    lag = (np.argmax(c) - (len(eta_f[half:]) - 1)) * dtc
+    phase = 2 * np.pi * lag / m2
+    assert 0.0 <= phase < 1.0, lag
+    return dict(quantity="interior over forcing SSH amplitude",
+                measured=amp_i / amp_f, analytic=1.0,
+                error=amp_i / amp_f - 1.0,
+                gate="ratio in [0.8, 1.05], lag in [0, 1) rad",
+                lag_rad=phase)
+
+
+def tc3_circle_obcs_radiation(device):
+    """configs/tc3: after 30 cycles the open run holds under half the
+    energy of a closed-wall twin, the twin conserves volume to 1e-5 and
+    the open run changes it by at most twice the disk's volume
+    (test_tc_ladder.py::TestTC3::test_circle_obcs_radiation)."""
+    ms = build(device, "tc3")
+    assert ms.params.obc is not None
+    G = ms.grid
+    h0 = _np(ms.state.h[0])
+    assert h0.max() - h0.min() > 1.0
+
+    def vol(s):
+        return float((s.h.double() * G.areaT.double()).sum())
+
+    def energy(s):
+        ke = float(((s.u ** 2 + s.v ** 2) * s.h * G.areaT[None]).sum())
+        eta = s.h.sum(0) - G.bathyT
+        eta = eta - eta.mean()
+        return ke + float(9.8 * (eta ** 2 * G.areaT).sum())
+
+    s_open = _cycles(ms, 30)
+    closed = ms._replace(params=ms.params.replace(obc=None))
+    s_closed = _cycles(closed, 30)
+    assert bool(torch.isfinite(s_open.u).all())
+    e_open, e_closed = energy(s_open), energy(s_closed)
+    assert e_closed > 0.0
+    assert e_open < 0.5 * e_closed, (e_open, e_closed)
+    v0 = vol(ms.state)
+    dv_closed = abs(vol(s_closed) - v0) / v0
+    assert dv_closed < 1e-5, dv_closed
+    disk_vol = float(((h0 - h0.min()) * _np(G.areaT)).sum())
+    dv_open = abs(vol(s_open) - v0)
+    assert dv_open <= 2.0 * disk_vol + 1e-6 * v0, (dv_open, disk_vol)
+    return dict(quantity="energy, open over closed", measured=e_open
+                / e_closed, analytic=0.5, error=e_open / e_closed - 0.5,
+                gate="< 0.5; closed volume to 1e-5, open within twice "
+                "the disk", dv_closed=dv_closed)
+
+
+def _wave(device):
+    """tests/test_obc.py::setup_wave: an eta bump mid-channel of a 32x8
+    reentrant-y channel, 100 m deep, at rest, f = 0."""
+    nx, ny = 32, 8
+    G = build_cartesian_grid(nx, ny, 320.0, 80.0, max_depth=100.0, f0=0.0,
+                             reentrant_y=True, device=device)
+    GV = build_layered_vgrid(1, device=device)
+    state = init_state_resting(G, GV, [100.0])
+    x = np.arange(nx)
+    bump = 0.5 * np.exp(-((x - nx / 2.0) ** 2) / 8.0)
+    state = state.replace(h=torch.tensor(
+        state.h.cpu().numpy() + bump[None, None, :], dtype=torch.float32,
+        device=G.bathyT.device))
+    nstep, _ = set_dtbt(G, GV, 100.0, 100.0)
+    p = DynParams(dt=100.0, bt=BTParams(nstep=nstep, nfilter=2), kv=0.0)
+    return G, GV, state, p
+
+
+def _wave_energy(s, G, GV):
+    h, u = _np(s.h), _np(s.u)
+    eta = h.sum(0) - _np(G.bathyT)
+    area = _np(G.areaT)
+    return 0.5 * GV.rho0 * GV.g_earth * (eta ** 2 * area).sum() \
+        + 0.5 * GV.rho0 * (h * u * u * area).sum()
+
+
+def _radiation(device, segments, with_old):
+    """Energy of the bump after 108 steps (3 h) open and closed."""
+    G, GV, state, p = _wave(device)
+    obc = build_obc(segments, G.ny, G.nx, device=device)
+    step = _dyn_stepper(MechForcing(), G, GV, p)
+    s_open = s_closed = state
+    for _ in range(108):
+        kw = dict(u_old=s_open.u, v_old=s_open.v) if with_old else {}
+        with torch.inference_mode():
+            s_open = apply_obc(step(s_open), obc, G, GV, p.dt, **kw)
+        s_closed = step(s_closed)
+    assert bool(torch.isfinite(s_open.h).all())
+    return (_wave_energy(state, G, GV), _wave_energy(s_open, G, GV),
+            _wave_energy(s_closed, G, GV))
+
+
+def flather_radiates_waves_out(device):
+    """Flather on both ends of the channel lets the bump's waves leave:
+    the open domain keeps < 0.3 of the energy and < 0.5 of the closed
+    one's (test_obc.py::test_flather_radiates_waves_out)."""
+    e0, e_open, e_closed = _radiation(
+        device, [OBCSegment(edge="E"), OBCSegment(edge="W")], False)
+    assert e_open < 0.3 * e0, e_open / e0
+    assert e_open < 0.5 * e_closed, (e_open, e_closed)
+    return dict(quantity="energy kept, open over initial",
+                measured=e_open / e0, analytic=0.3,
+                error=e_open / e0 - 0.3,
+                gate="< 0.3 of the initial, < 0.5 of the closed",
+                closed=e_closed / e0)
+
+
+def orlanski_radiates_waves_out(device):
+    """Oblique radiation at the east end and Orlanski at the west, with
+    the previous step's velocities: the open domain keeps less energy
+    than the closed one (test_obc.py::test_orlanski_radiates_waves_out)."""
+    e0, e_open, e_closed = _radiation(
+        device, [OBCSegment(edge="E", scheme="OBLIQUE"),
+                 OBCSegment(edge="W", scheme="ORLANSKI")], True)
+    assert e_open < e_closed, (e_open, e_closed)
+    return dict(quantity="energy kept, open over closed",
+                measured=e_open / e_closed, analytic=1.0,
+                error=e_open / e_closed - 1.0, gate="< 1")
+
+
 # name -> gate, in the order of the reference's test files
 GATES = {
     "external_gwave_phase_speed": external_gwave,
@@ -785,6 +1057,16 @@ GATES = {
         neverworld_topography_and_stability,
     "hurricane_wind_structure": hurricane_wind_structure,
     "hurricane_cold_wake": hurricane_cold_wake,
+    "supercritical_steps_stably": supercritical_steps_stably,
+    "kelvin_wave_trapped_at_coast": kelvin_wave_trapped_at_coast,
+    "shelfwave_trapped_on_shelf": shelfwave_trapped_on_shelf,
+    "dome_inflow_enters_and_descends": dome_inflow_enters_and_descends,
+    "dome_plume_turns_west": dome_plume_turns_west,
+    # tests/test_obc_file_reservoir.py, test_tc_ladder.py, test_obc.py
+    "tidal_bay_file_forcing": tidal_bay_file_forcing,
+    "tc3_circle_obcs_radiation": tc3_circle_obcs_radiation,
+    "flather_radiates_waves_out": flather_radiates_waves_out,
+    "orlanski_radiates_waves_out": orlanski_radiates_waves_out,
 }
 
 
