@@ -31,7 +31,12 @@ their own (nothing timed runs beside the gates):
    (8, 280, 360), at (75, 270, 360), at the shapes of the open-boundary
    run directories (OBC_KERNEL_SHAPES) and at those of phase 14's
    (RUNDIR_KERNEL_SHAPES: rows of 2 and 4 cells, adjustment's periodic
-   in y, spherical_gyre's (10, 24, 30), tides_channel's (10, 12, 40));
+   in y, spherical_gyre's (10, 24, 30), tides_channel's (10, 12, 40),
+   isomip's (12, 8, 32), tc1's, tc2's and nonbouss_basin's (8, 8, 10));
+   the Thomas solve at the systems JHL's kappa_shear ((7, 8, 10), 18 a
+   call, and its mixing of u, v, T and S) and PPM_IH4's compact edge
+   values ((9, 8, 10), a unit diagonal) make on tc2's and
+   nonbouss_basin's states, captured from the path, float64 and float32;
    the Thomas solve as the ADAPTIVE coordinate calls it on
    spherical_gyre's state, (9, 24, 30), and as wave_speed calls it for
    tides_channel's internal tides, (9, 12, 40); the Thomas solve as the
@@ -41,7 +46,7 @@ their own (nothing timed runs beside the gates):
    (32, 1, 280, 360) by the three of T, S and the age, and the diabatic
    solve of T and S on tidal_bay (3, 1, 24, 48), dome (14, 1, 32, 48),
    spherical_gyre (10, 1, 24, 30) and tides_channel (10, 1, 12, 40));
-   the ALE remap at
+   the ALE remap (also at the four's shapes) at
    (nf=2 and 1, 32, 400, 720), (nf=3, 2 and 1, 32, 280, 360), (nf=3 and
    2, 75, 270, 360), dome's (nf=2 and 1, 14, 32, 48), spherical_gyre's
    and tides_channel's (nf=2 and 1, 10, 24, 30 and 10, 12, 40), from 32 to 40
@@ -115,10 +120,13 @@ their own (nothing timed runs beside the gates):
    tidal wave drag and the spherical gyre (test_neutral_diffusion.py,
    test_regrid_hybrid.py::test_adaptive_*, test_internal_tides.py,
    test_tidal_mixing.py, test_bt_cont.py, test_ensemble_spherical.py),
+   and nine of the ice shelf, tc1, tc2 and the non-Boussinesq mode
+   (test_shelf_coupling.py, test_tc_ladder.py::TestTC1 and TestTC2,
+   test_nonbouss_mode.py, nonbouss_basin's 12 cycles among them),
    through the port
    in float32 at their own size and
    length with their own asserts (tests/torch_gates.py; the wave drag's
-   in float64, where its effect is above the rounding), four processes
+   in float64, where its effect is above the rounding), five processes
    at a time on the card (``--gate``: a process for each, those of
    torch_gates.BATCHED six to a process); one line per case
    with what it measured, the analytic value and the seconds;
@@ -146,7 +154,8 @@ their own (nothing timed runs beside the gates):
    the idealized user cases, the six with open boundaries (kelvin,
    shelfwave, supercritical, tidal_bay, dome, tc3) and the eight of phase
    14 (dense_water, tc4, adjustment, scm_lt, layered_bml, hycom_basin,
-   spherical_gyre, tides_channel) for 2 cycles in
+   spherical_gyre, tides_channel, isomip, tc1, tc2, nonbouss_basin) for
+   2 cycles in
    float64 on the card and on the CPU (--device cpu), ocean.stats to
    1e-12 (mass, heat, salt) and 1e-9 (KE, APE), the restart fields to
    1e-10 of max-abs (hycom_basin, whose free runs amplify a last bit,
@@ -172,7 +181,8 @@ their own (nothing timed runs beside the gates):
    (nz-1) shapes of both, (19, 100, 180) and (31, 400, 720), float32 and
    float64 bitwise against its plain version;
 13. the open boundaries: each of the six run directories above as
-   committed in float32 on the card in this process, 10 thermo cycles
+   committed in float32 on the card in this process, 5 thermo cycles
+   (``N_OBC_CYCLES``)
    with the provider's segment data, their launches held exactly to
    ``obc_cycle`` (tc3's with set_bt_cont's extra x and y edge launch a
    step, dome's with the diabatic solve and the z* remaps), the wall ms
@@ -186,7 +196,11 @@ their own (nothing timed runs beside the gates):
    Thomas solve a cycle; the Redi scheme's diffusivity joins the
    diabatic solve) and tides_channel (the tidal mixing, the internal
    tides: wave_speed's 10 more Thomas solves a cycle; the tidal wave
-   drag's piston map in the barotropic solver);
+   drag's piston map in the barotropic solver), and isomip (the ice
+   shelf, SIGMA_SHELF_ZSTAR), tc1 (the layered benchmark, VarMix), tc2
+   and nonbouss_basin (JHL: kappa_shear's 21 Thomas solves a cycle;
+   PPM_IH4: one a reconstructed field; frazil, geothermal heating; the
+   non-Boussinesq pressure force);
 15. ``[ops]``: neutral_diffusion on T, S and 2 passive tracers,
    build_adaptive_grid, wave_speed then step_internal_tides (8 angles)
    and tidal_mixing_kd, one call each on global_half_deg's built state
@@ -271,7 +285,9 @@ N_STEPS, STATS_INTERVAL = 20, 10
 FULL_PHYSICS = {"full_physics": (360, 280, 32, 1200.0, 10, 5),
                 "om4_tile": (360, 270, 75, 900.0, 3, 3)}
 N_TRACER_CYCLES = 4
-N_GATE_PROCS = 4            # physics gates run at once, a process each
+# physics gates run at once, a process each: the longest gate (Phillips,
+# ~350 s on the card) bounds the pool, the other 68 fill four more
+N_GATE_PROCS = 5
 GLOBAL_DIR = os.path.join(REPO, "configs", "global_half_deg")
 GLOBAL_SHAPE = (32, 400, 720)
 N_GLOBAL_CYCLES = 3
@@ -301,7 +317,7 @@ OBC_KERNEL_SHAPES = ((1, 32, 64), (1, 20, 60), (3, 24, 48), (14, 32, 48),
 # spherical_gyre and tides_channel
 RUNDIR_KERNEL_SHAPES = ((12, 64, 4), (2, 10, 14), (10, 8, 64), (40, 2, 2),
                         (12, 20, 24), (12, 18, 20), (10, 24, 30),
-                        (10, 12, 40))
+                        (10, 12, 40), (12, 8, 32), (8, 8, 10))
 REENTRANT_Y_SHAPES = ((10, 8, 64),)
 # (nf, nz0, ny, nx) of the remap at npoly 5 (PQM_IH4IH3): T and S, then
 # T, on hycom_basin with its HYCOM1 targets; T and S at full width
@@ -312,7 +328,8 @@ REMAP_SHAPES = ((2, 32, 400, 720), (1, 32, 400, 720), (2, 32, 280, 360),
                 (1, 32, 280, 360), (2, 75, 270, 360), (3, 32, 280, 360),
                 (3, 75, 270, 360), (2, 14, 32, 48), (1, 14, 32, 48),
                 (2, 10, 24, 30), (1, 10, 24, 30), (2, 10, 12, 40),
-                (1, 10, 12, 40))
+                (1, 10, 12, 40), (2, 12, 8, 32), (1, 12, 8, 32),
+                (3, 8, 8, 10), (2, 8, 8, 10), (1, 8, 8, 10))
 # more forms of the remap, (nf, nz0, ny, nx) and how the target grid is
 # made: more target layers than source layers, five fields (two passes of
 # the kernel), and a target grid equal to the source grid
@@ -323,7 +340,9 @@ REMAP_FORMS = (((2, 32, 400, 720), dict(nz1=40)),
 # T and S on the global path, of T, S and the age on the full-physics path,
 # of T and S on tidal_bay and dome, spherical_gyre and tides_channel
 SHARED_TRIDIAG = ((2,) + GLOBAL_SHAPE, (3, 32, 280, 360), (2, 3, 24, 48),
-                  (2, 14, 32, 48), (2, 10, 24, 30), (2, 10, 12, 40))
+                  (2, 14, 32, 48), (2, 10, 24, 30), (2, 10, 12, 40),
+                  (2, 12, 8, 32), (3, 8, 8, 10), (2, 8, 8, 10),
+                  (4, 8, 8, 10))
 # the shape whose numbers a kernel's row of the JSON line carries: that
 # of the path that launches it
 ROW_SHAPE = {"ppm_edges_y": (32, 280, 360), "ppm_flux_y": (32, 280, 360)}
@@ -372,7 +391,7 @@ def table_post(n_dyn):
     return {k: c[k] + PER_FOLD_STEP[k] + extra.get(k, 0) for k in c}
 
 
-def obc_cycle(n_dyn, bt_cont=False, thermo=None):
+def obc_cycle(n_dyn, bt_cont=False, thermo=None, n_fields=2):
     """Launches of one thermo cycle of a configuration without the fold:
     ``n_dyn`` split steps, each with BT_cont one more x and y edge
     reconstruction (set_bt_cont); with ``thermo`` "layer" the diabatic
@@ -382,14 +401,18 @@ def obc_cycle(n_dyn, bt_cont=False, thermo=None):
     the same as "ale" and the ADAPTIVE coordinate's smoothing solve,
     "ale_itides" the same as "ale" and the mode speed of the internal
     tides (wave_speed's n_iter solves; the Redi scheme's and the tidal
-    mixing's diffusivities join the diabatic solve), "bulkml" the
-    layered sequence's remaps of u and v and no column solve."""
+    mixing's diffusivities join the diabatic solve), "ale_jhl",
+    "ale_ih4" and "ale_jhl_ih4" the same as "ale" and JHL's kappa_shear
+    (kappa_shear_solves) and PPM_IH4's edge system of each reconstructed
+    field (the ``n_fields`` cell fields, u and v), "bulkml" the layered
+    sequence's remaps of u and v and no column solve."""
     per = dict(PER_STEP)
     if bt_cont:
         per["ppm_edges_x"] += 1
         per["ppm_edges_y"] += 1
     out = {k: n_dyn * c for k, c in per.items()}
-    ale = ("ale", "ale_pqm", "ale_adaptive", "ale_itides")
+    ale = ("ale", "ale_pqm", "ale_adaptive", "ale_itides", "ale_jhl",
+           "ale_ih4", "ale_jhl_ih4")
     if thermo == "layer" or thermo in ale:
         out["tridiag"] += PER_THERMO["tridiag"]
     if thermo in ale:
@@ -398,6 +421,10 @@ def obc_cycle(n_dyn, bt_cont=False, thermo=None):
         out["tridiag"] += 1
     if thermo == "ale_itides":
         out["tridiag"] += WAVE_SPEED_SOLVES
+    if thermo in ("ale_jhl", "ale_jhl_ih4"):
+        out["tridiag"] += kappa_shear_solves()
+    if thermo in ("ale_ih4", "ale_jhl_ih4"):
+        out["tridiag"] += n_fields + 2
     if thermo == "ale_pqm":
         out["remap_npoly5"] += PER_THERMO["remap"]
     if thermo == "bulkml":
@@ -411,12 +438,17 @@ OBC_CONFIGS = {"kelvin": (1, False, None), "shelfwave": (1, False, None),
                "supercritical": (1, False, None),
                "tidal_bay": (2, False, "layer"), "dome": (2, False, "ale"),
                "tc3": (1, True, None)}
-# thermo cycles of each in float32 on the card, timed and counted
-N_OBC_CYCLES = 10
+# thermo cycles of each in float32 on the card, timed and counted (10
+# until the four run directories of isomip, tc1, tc2 and nonbouss_basin
+# joined the path: 5 keep the whole script inside its time limit)
+N_OBC_CYCLES = 5
 # the run directories of the sponge, the BBL drag, REENTRANT_Y, LF17, the
 # bulk mixed layer and hycom_basin's set, and of JACKETT06, ADAPTIVE and
 # neutral diffusion (spherical_gyre) and of the tidal mixing, the internal
 # tides and the tidal wave drag (tides_channel), the same for each
+# isomip (the ice shelf, SIGMA_SHELF_ZSTAR), tc1 (the layered benchmark
+# with VarMix), tc2 and nonbouss_basin (JHL, PPM_IH4 on T, S and, tc2's
+# fourth entry, the ideal age), the same
 RUNDIR_CONFIGS = {"dense_water": (2, False, "ale"),
                   "tc4": (3, False, "ale"),
                   "adjustment": (2, False, "ale"),
@@ -424,13 +456,26 @@ RUNDIR_CONFIGS = {"dense_water": (2, False, "ale"),
                   "layered_bml": (3, False, "bulkml"),
                   "hycom_basin": (3, True, "ale_pqm"),
                   "spherical_gyre": (2, False, "ale_adaptive"),
-                  "tides_channel": (2, False, "ale_itides")}
+                  "tides_channel": (2, False, "ale_itides"),
+                  "isomip": (3, False, "ale"),
+                  "tc1": (4, True, "bulkml"),
+                  "tc2": (2, True, "ale_jhl_ih4", 3),
+                  "nonbouss_basin": (2, True, "ale_jhl_ih4", 2)}
 
 
 # wave_speed's Thomas solves a call: the internal tides' mode speed each
 # thermo cycle (INTERNAL_TIDE_MODES = 1)
 WAVE_SPEED_SOLVES = inspect.signature(wave_speed).parameters[
     "n_iter"].default
+def kappa_shear_solves():
+    """kappa_shear's Thomas solves a call: two a sweep of the kappa and
+    TKE equations, n_inner sweeps and one solve of u, v, T and S an outer
+    pass."""
+    from mom6_tpu_torch.physics.vertical.kappa_shear import KappaShearParams
+    p = KappaShearParams()
+    return p.n_outer * (2 * p.n_inner + 1)
+
+
 # per thermo cycle of the global path (6 baroclinic steps)
 PER_GLOBAL_CYCLE = fold_cycle(6)
 # a post of the table at 720x400x32 (global_half_deg, 6 steps a cycle)
@@ -1141,6 +1186,94 @@ def _has_slice12():
         TREE, "mom6_tpu_torch", "tracers", "neutral_diffusion.py"))
 
 
+def _has_slice13():
+    """Whether the checkout driven has JHL's kappa_shear and PPM_IH4 (a
+    parent given by --tree may not)."""
+    return os.path.exists(os.path.join(
+        TREE, "mom6_tpu_torch", "physics", "vertical", "kappa_shear.py"))
+
+
+def _captured_systems(dtype, dev):
+    """{form: [(a, b, c, d), ...]}: the Thomas solves of JHL's
+    kappa_shear (its kappa and TKE systems, (nz-1, ny, nx), and its
+    mixing of u, v, T and S, coefficients shared by the four) on tc2's
+    state, and of PPM_IH4's edge systems ((nz+1, ny, nx), unit diagonal,
+    one for each of T, S, u and v) on tc2's and nonbouss_basin's, each
+    built in ``dtype`` and stepped one cycle under a seeded flow."""
+    from mom6_tpu_torch.physics.vertical import kappa_shear as ks
+    from mom6_tpu_torch.tracers import vert_diff
+    out = {}
+    for name in ("tc2", "nonbouss_basin"):
+        ms = build_model_from_params(ParamFile([os.path.join(
+            TREE, "configs", name, "MOM_input")]), dtype=dtype, device=dev)
+        p = ms.params
+        with torch.inference_mode():
+            st = step_mom(_flowing(ms.state, ms.grid), ms.forcing, ms.grid,
+                          ms.vgrid, p)
+            if name == "tc2":
+                def jhl():
+                    return ks.kappa_shear(
+                        st.h, st.u, st.v, st.T, st.S, ms.grid, ms.vgrid,
+                        get_eos(p.eos_name),
+                        dt=p.dyn.dt * p.n_dyn_per_thermo)
+                out["kappa_shear's kappa and TKE systems (tc2)"] = \
+                    _captured_solves(ks, jhl)
+                out["kappa_shear's mixing of u, v, T and S (tc2)"] = \
+                    _captured_solves(vert_diff, jhl)
+            out[f"PPM_IH4's edge systems ({name})"] = _captured_solves(
+                remap, lambda: ale_regrid_remap(st, ms.grid, ms.vgrid,
+                                                p.ale))
+    return out
+
+
+def _check_tridiag_captured(dev):
+    """The Thomas kernel at the systems of :func:`_captured_systems`,
+    float64 and float32, every one bitwise against the plain version; the
+    float32 times of each form's first system."""
+    from mom6_tpu_torch.physics.vertical.kappa_shear import KappaShearParams
+    kp = KappaShearParams()
+    want = {"kappa_shear's kappa": 2 * kp.n_inner * kp.n_outer,
+            "kappa_shear's mixing": kp.n_outer, "PPM_IH4's edge": 4}
+    for dtype in (torch.float64, torch.float32):
+        systems = _captured_systems(dtype, dev)
+        for form, seen in systems.items():
+            n_want = [v for k, v in want.items() if form.startswith(k)]
+            if n_want and len(seen) != n_want[0]:
+                raise AssertionError(f"{form}: {len(seen)} solves")
+            for a, b, c, d in seen:
+                x_k = solvers.tridiag_solve(a, b, c, d)
+                x_p = solvers.tridiag_solve_plain(a, b, c, d)
+                torch.cuda.synchronize()
+                if not torch.equal(x_k, x_p):
+                    raise AssertionError(
+                        f"tridiag {form} {tuple(d.shape)} {dtype}: max abs "
+                        f"diff {float((x_k - x_p).abs().max())}")
+    for form, seen in systems.items():
+        a, b, c, d = seen[0]
+        shape = tuple(d.shape)
+        n = math.prod(shape)
+        if d.dim() == 4:                # (nz, n_tr, ny, nx), shared
+            n_tr = shape[1]
+            n1 = n // n_tr
+            b_ms, b_by = bound(4 * (3 + 2 * n_tr) * n1, (3 + 5 * n_tr) * n1)
+        else:
+            b_ms, b_by = bound(4 * 5 * n, FLOPS_PER_POINT["tridiag"] * n)
+        ms_ = median_ms(lambda: solvers.tridiag_solve(a, b, c, d))
+        d_ms = device_ms(lambda: solvers.tridiag_solve(a, b, c, d),
+                         "thomas_kernel")
+        pms = median_ms(lambda: solvers.tridiag_solve_plain(a, b, c, d))
+        log(f"[kernel] tridiag as {form} calls it, {shape}, "
+            f"{len(seen)} solves a call: float64 and float32 bitwise equal "
+            f"to the plain version; kernel {ms_:.4f} ms ({d_ms:.4f} ms on "
+            f"the device), plain {pms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        TIMES[f"tridiag {form} {shape}"] = ms_
+        TIMES[f"tridiag {form} {shape} device"] = d_ms
+        SHAPE_ROWS.setdefault("tridiag", []).append(dict(
+            form=form, max_abs_err=0.0, ms=ms_, device_ms=d_ms,
+            plain_ms=pms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            shape=list(shape)))
+
+
 def phase_kernels(dev, ms):
     """Every kernel against its plain version on the card; the fold
     branch on the global model ``ms``'s grid and on a polar cap with an
@@ -1167,6 +1300,11 @@ def phase_kernels(dev, ms):
     else:
         log(f"[kernel] {TREE} has no ADAPTIVE coordinate: its Thomas shape "
             f"is not checked there")
+    if _has_slice13():
+        _check_tridiag_captured(dev)
+    else:
+        log(f"[kernel] {TREE} has no kappa_shear nor PPM_IH4: their Thomas "
+            f"systems are not checked there")
     for shape, form in [(sh, {}) for sh in REMAP_SHAPES] + list(REMAP_FORMS):
         _check_remap(shape, dev, results, **form)
         torch.cuda.empty_cache()
@@ -2058,10 +2196,13 @@ def _thermo_kind(p):
         return "bulkml"
     if p.ale.mode == "LAYER":
         return "layer"
+    jhl = p.diabatic.use_shear_mixing and p.diabatic.shear_scheme == "JHL"
+    ih4 = p.ale.scheme == "PPM_IH4"
     kinds = [k for k, on in (
         ("ale_pqm", p.ale.scheme == remap.PQM_IH4IH3),
         ("ale_adaptive", p.ale.mode == "ADAPTIVE"),
-        ("ale_itides", p.int_tides is not None)) if on]
+        ("ale_itides", p.int_tides is not None),
+        ("ale" + "_jhl" * jhl + "_ih4" * ih4, jhl or ih4)) if on]
     if len(kinds) > 1 or (p.int_tides is not None
                           and p.int_tides.n_mode != 1):
         raise NotImplementedError(f"obc_cycle counts none of {kinds} "
@@ -2089,14 +2230,19 @@ def _run_dirs_phase(dev, configs, tag, keep):
     time and idle share).  Returns the launches of the runs of ``keep``
     as {tag_name: counts}."""
     out = {}
-    for name, (n_dyn, bt_cont, thermo) in configs.items():
+    for name, cfg in configs.items():
+        n_dyn, bt_cont, thermo = cfg[:3]
+        n_fields = cfg[3] if len(cfg) > 3 else 2
         ms = build_model_from_params(ParamFile([os.path.join(
             TREE, "configs", name, "MOM_input")]), device=dev)
         p = ms.params
+        n_tr = 0 if p.tfc is None else len(p.tfc.registry.names)
         got = (p.n_dyn_per_thermo, p.dyn.bt.use_bt_cont, _thermo_kind(p))
         if got != (n_dyn, bt_cont, thermo) or (
-                tag == "obc" and p.obc is None):
-            raise AssertionError(f"{name}: built {got}, obc {p.obc}")
+                tag == "obc" and p.obc is None) or (
+                "ih4" in str(thermo) and n_fields != 2 + n_tr):
+            raise AssertionError(f"{name}: built {got}, obc {p.obc}, "
+                                 f"{n_tr} passive tracers")
         cycle = _obc_cycler(ms)
         st = cycle(ms.state, 0)
         torch.cuda.synchronize()
@@ -2107,7 +2253,7 @@ def _run_dirs_phase(dev, configs, tag, keep):
         torch.cuda.synchronize()
         wall = 1e3 * (time.time() - t0) / N_OBC_CYCLES
         counts = kernel_launches()
-        _check_counts(counts, obc_cycle(n_dyn, bt_cont, thermo),
+        _check_counts(counts, obc_cycle(n_dyn, bt_cont, thermo, n_fields),
                       N_OBC_CYCLES, name)
         for k in ("h", "u", "v"):
             if not bool(torch.isfinite(getattr(st, k)).all()):
@@ -2286,12 +2432,17 @@ def _run_solo(runs, n_at_once=N_SOLO_PROCS):
 def _start_solo(d, args):
     """Start ``python -m mom6_tpu_torch.drivers.solo d args``; returns
     (process, start time, its log file)."""
-    env = dict(os.environ, PYTHONPATH=TREE, OMP_NUM_THREADS="2")
+    # one thread, at a lower priority: these runs fill the cores the
+    # physics gates beside them leave idle, and the longest gate, a
+    # host-bound single process, sets the end of the script
+    env = dict(os.environ, PYTHONPATH=TREE, OMP_NUM_THREADS="1")
     log_f = open(os.path.join(d, "solo.log"), "w")
-    return (subprocess.Popen(
+    proc = subprocess.Popen(
         [sys.executable, "-m", "mom6_tpu_torch.drivers.solo", d]
         + list(args), cwd=TREE, env=env, stdout=log_f,
-        stderr=subprocess.STDOUT), time.time(), log_f)
+        stderr=subprocess.STDOUT)
+    os.setpriority(os.PRIO_PROCESS, proc.pid, 10)
+    return proc, time.time(), log_f
 
 
 def _end_solo(d, run):

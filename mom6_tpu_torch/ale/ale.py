@@ -6,10 +6,11 @@ One call builds the new grid for the current columns, remaps T, S and
 any passive tracers on cell columns in one multi-field remap, and u and
 v on face columns (face thicknesses are the means of the adjacent
 columns, before and after): three launches of the remap kernel on the
-card.  Ported modes: LAYER (no regridding), ZSTAR, RHO (isopycnal
-targets), HYCOM1 (isopycnal below a nominal z* floor) and ADAPTIVE (the
-interfaces flattened toward neutral density and smoothed by one Thomas
-solve); the others raise.
+card.  Ported modes: LAYER (no regridding), ZSTAR, SIGMA,
+SIGMA_SHELF_ZSTAR (sigma on shallow columns, z* on deep ones), RHO
+(isopycnal targets), HYCOM1 (isopycnal below a nominal z* floor) and
+ADAPTIVE (the interfaces flattened toward neutral density and smoothed
+by one Thomas solve); HYBGEN raises.
 """
 
 from __future__ import annotations
@@ -20,28 +21,33 @@ from typing import Optional
 import torch
 
 from mom6_tpu_torch.ale.regridding import (AdaptParams, build_adaptive_grid,
-                                           build_hycom1_grid,
-                                           build_rho_grid, build_zstar_grid)
+                                           build_hycom1_grid, build_rho_grid,
+                                           build_sigma_grid,
+                                           build_sigma_shelf_zstar_grid,
+                                           build_zstar_grid)
 from mom6_tpu_torch.ale.remapping import (PPM_H4, remap_column,
                                           remap_columns_multi)
 from mom6_tpu_torch.eos import get_eos
 from mom6_tpu_torch.framework.stencil import ip1, jp1
 
-__all__ = ["ALEParams", "ale_regrid_remap", "LAYER", "ZSTAR", "RHO",
-           "HYCOM1", "ADAPTIVE"]
+__all__ = ["ALEParams", "ale_regrid_remap", "LAYER", "ZSTAR", "SIGMA",
+           "SIGMA_SHELF_ZSTAR", "RHO", "HYCOM1", "ADAPTIVE"]
 
 LAYER = "LAYER"
 ZSTAR = "ZSTAR"
+SIGMA = "SIGMA"
+SIGMA_SHELF_ZSTAR = "SIGMA_SHELF_ZSTAR"
 RHO = "RHO"
 HYCOM1 = "HYCOM1"
 ADAPTIVE = "ADAPTIVE"
-_UNPORTED = ("SIGMA", "HYBGEN", "SIGMA_SHELF_ZSTAR")
+_UNPORTED = ("HYBGEN",)
 
 
 @dataclasses.dataclass(frozen=True)
 class ALEParams:
     mode: str = ZSTAR
     dz_nominal: tuple = ()         # nominal z* thicknesses (nz,)
+    shelf_depth: float = 200.0     # SIGMA_SHELF_ZSTAR's transition [m]
     rho_targets: tuple = ()        # RHO and HYCOM1 target densities (nz,)
     scheme: str = PPM_H4
     min_thickness: float = 1e-10
@@ -66,6 +72,11 @@ def ale_regrid_remap(state, G, GV, p: ALEParams,
     h = state.h
     if p.mode == ZSTAR:
         h_new = build_zstar_grid(h, G.bathyT, p.dz_nominal, p.min_thickness)
+    elif p.mode == SIGMA:
+        h_new = build_sigma_grid(h, min_thickness=p.min_thickness)
+    elif p.mode == SIGMA_SHELF_ZSTAR:
+        h_new = build_sigma_shelf_zstar_grid(h, G.bathyT, p.dz_nominal,
+                                             p.shelf_depth, p.min_thickness)
     elif p.mode == RHO:
         h_new = build_rho_grid(h, state.T, state.S, GV, get_eos(p.eos_name),
                                p.rho_targets, min_thickness=p.min_thickness)

@@ -1,7 +1,8 @@
 """Target grids of the ALE vertical coordinate
-(twin of mom6_tpu/ale/regridding.py: build_zstar_grid, build_rho_grid,
-build_hycom1_grid, AdaptParams with build_adaptive_grid and
-uniform_dz_profile; the other coordinates are not ported).
+(twin of mom6_tpu/ale/regridding.py: build_zstar_grid, build_sigma_grid,
+build_sigma_shelf_zstar_grid, build_rho_grid, build_hycom1_grid,
+AdaptParams with build_adaptive_grid and uniform_dz_profile; HYBGEN is
+not ported).
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ from mom6_tpu_torch.framework.arith import rdiv, sdiv, vcumsum, vsum
 from mom6_tpu_torch.framework.solvers import tridiag_solve
 from mom6_tpu_torch.framework.stencil import im1, ip1, jm1, jp1
 
-__all__ = ["AdaptParams", "build_zstar_grid", "build_rho_grid",
+__all__ = ["AdaptParams", "build_zstar_grid", "build_sigma_grid",
+           "build_sigma_shelf_zstar_grid", "build_rho_grid",
            "build_hycom1_grid", "build_adaptive_grid", "uniform_dz_profile"]
 
 
@@ -39,6 +41,32 @@ def build_zstar_grid(h, bathy, dz_nominal, min_thickness: float = 1e-10):
     h_new = torch.clamp(z[1:] - z[:-1], min=min_thickness)
     scale = col / torch.clamp(vsum(h_new), min=1e-30)
     return h_new * scale[None]
+
+
+def build_sigma_grid(h, nz: int = None, min_thickness: float = 1e-10):
+    """Terrain-following thicknesses: each column split into ``nz``
+    (default h's) equal fractions."""
+    nz = nz or h.shape[0]
+    frac = torch.full((nz,), 1.0 / nz, dtype=h.dtype, device=h.device)
+    return torch.clamp(frac[:, None, None] * vsum(h)[None],
+                       min=min_thickness)
+
+
+def build_sigma_shelf_zstar_grid(h, bathy, dz_nominal, shelf_depth,
+                                 min_thickness: float = 1e-10):
+    """SIGMA_SHELF_ZSTAR: sigma where the column is shallower than
+    ``shelf_depth`` (under an ice shelf, on a shelf), z* where it is
+    deeper than twice that, blended linearly in between; renormalised so
+    each column keeps its sum."""
+    z_sig = build_sigma_grid(h, nz=len(dz_nominal),
+                             min_thickness=min_thickness)
+    z_str = build_zstar_grid(h, bathy, dz_nominal, min_thickness)
+    col = vsum(h)
+    w_sig = torch.clamp(sdiv(2.0 * shelf_depth - col,
+                             max(shelf_depth, 1e-3)), 0.0, 1.0)
+    h_new = w_sig[None] * z_sig + (1.0 - w_sig[None]) * z_str
+    scale = col / torch.clamp(vsum(h_new), min=1e-30)
+    return torch.clamp(h_new * scale[None], min=min_thickness)
 
 
 def build_rho_grid(h, T, S, GV, eos, rho_targets, *,

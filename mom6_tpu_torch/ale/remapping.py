@@ -30,7 +30,10 @@ not cover it whole.  :func:`remap_integrals_cellwise` states that order
 in plain PyTorch; the tests hold it bitwise against
 :func:`remap_integrals_plain`, ties and vanished layers included.
 
-Ported schemes: PCM, PLM and PPM_H4 (three coefficients a cell), and
+Ported schemes: PCM, PLM, PPM_H4 and PPM_IH4 (three coefficients a
+cell; PPM_IH4's edge values solve the compact fourth-order tridiagonal
+system of each column with the Thomas kernel, its two boundary rows a
+cubic fitted to the four cells nearest each end), and
 PQM_IH4IH3 (five: the White & Adcroft quartic through the explicit H4
 edge values and the interface slopes, the PPM parabola where the quartic
 leaves its cell's bounds), which the kernel takes in its NPOLY = 5 form;
@@ -39,19 +42,23 @@ the reference's others raise.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from mom6_tpu_torch.framework import kernels
+from mom6_tpu_torch.framework.arith import ipow, rdiv, vcumsum, vsum
+from mom6_tpu_torch.framework.solvers import tridiag_solve
 
 __all__ = ["remap_column", "remap_columns_multi", "remap_coefficients",
            "remap_integrals_plain", "remap_integrals_cellwise", "reconstruct",
-           "PCM", "PLM", "PPM_H4", "PQM_IH4IH3"]
+           "PCM", "PLM", "PPM_H4", "PPM_IH4", "PQM_IH4IH3"]
 
 PCM = "PCM"
 PLM = "PLM"
 PPM_H4 = "PPM_H4"
+PPM_IH4 = "PPM_IH4"
 PQM_IH4IH3 = "PQM_IH4IH3"
-_UNPORTED = ("PPM_IH4", "PPM_H6", "P3M_H4")
+_UNPORTED = ("PPM_H6", "P3M_H4")
 
 _EPS = 1e-30
 # antiderivative scaling of the reconstruction's coefficients:
@@ -90,6 +97,90 @@ def _edge_values_h4(u, h):
         e_top[nz - 1] = 0.5 * (u[nz - 2] + u[nz - 1])
     e_bot = torch.cat([e_top[1:], u[-1:]], dim=0)
     return e_top, e_bot
+
+
+def _edge_values_implicit_h4(u, h):
+    """Compact fourth-order edge values on a non-uniform column
+    (edge_values_implicit_h4): at the interface between cells of widths
+    h0 and h1, alpha e_{i-1} + e_i + beta e_{i+1} = a u0 + b u1 with
+    alpha = h1^2/(h0+h1)^2, beta = h0^2/(h0+h1)^2 and
+    a = 2 alpha (alpha + 2 beta + 3 ab), b = 2 beta (beta + 2 alpha + 3 ab),
+    ab = h0 h1/(h0+h1)^2; the two boundary edges are pinned to the cubic
+    of :func:`_boundary_fit`.  Each layer of a pair is floored at 1% of
+    the pair, which keeps the unit-diagonal system strictly diagonally
+    dominant where thin and thick layers alternate.  One tridiagonal
+    solve of (nz+1, ...).  Returns (e_top, e_bot)."""
+    nz = u.shape[0]
+    pair = h[:-1] + h[1:] + 1e-30
+    h0 = torch.maximum(h[:-1], 0.01 * pair)
+    h1 = torch.maximum(h[1:], 0.01 * pair)
+    i_h2 = rdiv(1.0, (h0 + h1) ** 2)
+    alpha = h1 * h1 * i_h2
+    beta = h0 * h0 * i_h2
+    abmix = h0 * h1 * i_h2
+    a = 2.0 * alpha * (alpha + 2.0 * beta + 3.0 * abmix)
+    b = 2.0 * beta * (beta + 2.0 * alpha + 3.0 * abmix)
+    z1 = torch.zeros_like(u[:1])
+    lo = torch.cat([z1, alpha, z1], dim=0)
+    up = torch.cat([z1, beta, z1], dim=0)
+    di = torch.ones_like(lo)
+    nfit = min(4, nz)
+    e_sfc = _boundary_fit(u[:nfit], h[:nfit])
+    e_bot = _boundary_fit(torch.flip(u, (0,))[:nfit],
+                          torch.flip(h, (0,))[:nfit])
+    rhs = torch.cat([e_sfc[None], a * u[:-1] + b * u[1:], e_bot[None]],
+                    dim=0)
+    e = tridiag_solve(lo, di, up, rhs)
+    return e[:-1], e[1:]
+
+
+def _lu_solve_lapack(A, rhs):
+    """``A x = rhs`` for a stack of small systems (..., n, n), (..., n) on
+    the CPU, each by LAPACK's getrf and two BLAS trsm (scipy's, the
+    routines the reference's CPU solve calls), so the result is the
+    reference's to the bit."""
+    from scipy.linalg import blas, lapack
+    a = A.detach().numpy()
+    r = rhs.detach().numpy()
+    n = a.shape[-1]
+    getrf, trsm = ((lapack.dgetrf, blas.dtrsm) if a.dtype == np.float64
+                   else (lapack.sgetrf, blas.strsm))
+    flat_a = a.reshape(-1, n, n)
+    flat_r = r.reshape(-1, n, 1)
+    out = np.empty_like(flat_r)
+    with np.errstate(all="ignore"):
+        for i in range(flat_a.shape[0]):
+            lu, piv, _ = getrf(flat_a[i])
+            perm = np.arange(n)
+            for k, pk in enumerate(piv):
+                perm[[k, pk]] = perm[[pk, k]]
+            x = trsm(1.0, lu, flat_r[i][perm], side=0, lower=1, trans_a=0,
+                     diag=1)
+            out[i] = trsm(1.0, lu, x, side=0, lower=0, trans_a=0, diag=0)
+    return torch.from_numpy(out.reshape(r.shape))
+
+
+def _boundary_fit(u, h):
+    """The value at the outer boundary of the polynomial of degree n-1
+    whose means over the ``n = u.shape[0]`` cells nearest the boundary
+    (outermost first) are u: a Vandermonde-style system in z normalised
+    by the stack's depth, vanished layers floored at 1e-3/n of it, solved
+    by LU with partial pivoting (on the CPU LAPACK's, as the reference;
+    on the card ``torch.linalg.solve``), the outermost cell mean where
+    the solve degenerates."""
+    n = u.shape[0]
+    total = vsum(h, keepdim=True) + 1e-30
+    hn = torch.maximum(h, (1e-3 / n) * total) / total
+    zi = torch.cat([torch.zeros_like(hn[:1]), vcumsum(hn)], dim=0)
+    rows = [(ipow(zi[1:], m + 1) - ipow(zi[:-1], m + 1))
+            / (float(m + 1) * hn) for m in range(n)]
+    A = torch.movedim(torch.stack(rows, dim=-1), 0, -2)   # (..., n, n)
+    rhs = torch.movedim(u, 0, -1)                         # (..., n)
+    if u.device.type == "cpu":
+        coef = _lu_solve_lapack(A, rhs)[..., 0]
+    else:
+        coef = torch.linalg.solve(A, rhs)[..., 0]
+    return torch.where(torch.isfinite(coef), coef, u[0])
 
 
 def _ppm_limit(u, e_l, e_r):
@@ -170,8 +261,10 @@ def reconstruct(u, h, scheme: str):
     if scheme == PLM:
         slp = _plm_slopes(u, h)
         return u - 0.5 * slp, slp, torch.zeros_like(u)
-    if scheme == PPM_H4:
-        e_l, e_r = _ppm_limit(u, *_edge_values_h4(u, h))
+    if scheme in (PPM_H4, PPM_IH4):
+        edges = _edge_values_implicit_h4 if scheme == PPM_IH4 \
+            else _edge_values_h4
+        e_l, e_r = _ppm_limit(u, *edges(u, h))
         # u(xi) = eL + xi[(eR-eL) + 6(1-xi)(u - (eL+eR)/2)]  (CW84)
         return (e_l, 6.0 * u - 4.0 * e_l - 2.0 * e_r,
                 3.0 * ((e_l + e_r) - 2.0 * u))

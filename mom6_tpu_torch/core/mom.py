@@ -2,13 +2,20 @@
 (twin of mom6_tpu/core/mom.py: MOMParams, Forcing, step_mom and
 assemble_diffusivity_extras).
 
+  with an ice shelf: its pressure into the surface pressure, its melt
+      fluxes into the buoyancy forcing, the wind stress cut under it
+  with VarMix: the resolution function (from the WKB first-mode speed)
+      and the Visbeck slope function of the cycle's starting state
   with thermodynamics and GM on: thickness diffusion of h with KHTH (plus
       the MEKE diffusivity when MEKE is on, whose energy then steps with
-      the GM PE release), its bolus transports added to uhtr/vhtr
+      the GM PE release, and the VarMix scalings), its bolus transports
+      added to uhtr/vhtr
   with thermodynamics and the mixed-layer restratification on: the
       mixed-layer depth, then the Fox-Kemper overturning
   for each of the n_dyn_per_thermo baroclinic steps:
-      split-RK2 dynamics with the FV pressure force, lateral friction,
+      split-RK2 dynamics with the FV pressure force (in the
+      non-Boussinesq mode its specific-volume form on the layer masses
+      rho0 h), lateral friction (Kh scaled by VarMix's Res_fn),
       the boundary-layer and shear viscosity ``kv_shear`` of the last
       cycle and, with ``bbl_visc``, the BBL's bottom-drag piston
       velocities, accumulating the transports uhtr/vhtr (or, with
@@ -18,20 +25,24 @@ assemble_diffusivity_extras).
   then, with thermodynamics on, on the stack of T, S and the registered
   passive tracers (T, S, then the registry's order):
       tracer advection with the accumulated transports
-      along-layer tracer diffusion (KHTR > 0), or neutral diffusion:
+      along-layer tracer diffusion (KHTR > 0, with VarMix's scalings), or
+      neutral diffusion:
       the Redi scheme (whose K S^2 part ``kd_redi`` joins the column
       solve) or the matched-surfaces scheme (``ndiff_scheme``)
       the KPP or ePBL (with the Langmuir number of ``waves``) and
-      shear-mixing diffusivities, which also set kv_shear, and with
+      shear-mixing (LMD94, PP81 or JHL's kappa_shear) diffusivities,
+      which also set kv_shear, and with
       ``int_tides`` the low-mode internal tides (the mode speed, one
       propagation step of En_itide, the lowmode tidal mixing of its
       losses)
-      diabatic column physics (one column solve; with the tidal mixing
-      of ``diabatic.diff.tidal``), then the KPP nonlocal
-      transport of the surface heat and salt fluxes
+      diabatic column physics (geothermal heating, one column solve with
+      the tidal mixing of ``diabatic.diff.tidal``, frazil, whose heat
+      accumulates in the state's ``frazil`` where it is allocated), then
+      the KPP nonlocal transport of the surface heat and salt fluxes
       the tracer packages' sources and sinks
       the sponge
-      ALE regrid (z*, RHO, HYCOM1 or ADAPTIVE) and conservative remap
+      ALE regrid (z*, sigma, SIGMA_SHELF_ZSTAR, RHO, HYCOM1 or ADAPTIVE)
+      and conservative remap
       reset of the transport accumulators
   or, in the layered mode with the bulk mixed layer (BULKML): the
   surface fluxes, the bulk mixed layer and the entrainment
@@ -47,23 +58,26 @@ MOM_tracer_registry.F90), which sum to the total change;
 ``dyn_accel_diag`` runs one split step that returns its accelerations,
 for the KE budget.  Both serve the diagnostic catalog.
 
-Ported: the thermo ALE branch and the adiabatic branch, the unsplit
-steppers, the open boundaries (``obc``, with the forcing's time-dependent
-``obc_data``), GM with a constant KHTH or KHTH + MEKE, MEKE, the
-mixed-layer restratification, the plain KHTR and the neutral tracer
-diffusion, KPP, ePBL, the LF17 Langmuir number, the LMD94/PP81 shear
-mixing, the BBL viscosity and its mixing, the tidal mixing, the internal
-tides, the sponge, the bulk mixed layer and the tracer packages.  Every
-other optional subsystem of the reference's MOMParams (varmix, tides,
-SPPT/SKEB, porous barriers, ZB, Stanley, DIABATIC_FIRST, the passivity,
-capped and boundary-layer forms of tracer diffusion, MEKE's backscatter
-and friction source...) and the JHL shear scheme raise
-``NotImplementedError`` naming themselves when they are set.
+Ported: the thermo ALE branch and the adiabatic branch, the
+non-Boussinesq mode (``GV.boussinesq`` False), the unsplit steppers, the
+open boundaries (``obc``, with the forcing's time-dependent
+``obc_data``), the ice shelf (``shelf``), VarMix (``varmix``), GM with a
+constant KHTH or KHTH + MEKE, MEKE, the mixed-layer restratification,
+the plain KHTR and the neutral tracer diffusion, KPP, ePBL, the LF17
+Langmuir number, the LMD94/PP81 and JHL shear mixing, the BBL viscosity
+and its mixing, the tidal mixing, the internal tides, geothermal
+heating, frazil, the sponge, the bulk mixed layer and the tracer
+packages.  Every other optional subsystem of the reference's MOMParams
+(tides, SPPT/SKEB, porous barriers, ZB, Stanley, DIABATIC_FIRST, the
+passivity, capped and boundary-layer forms of tracer diffusion, MEKE's
+backscatter and friction source...) raises ``NotImplementedError``
+naming itself when it is set.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -77,16 +91,21 @@ from mom6_tpu_torch.core.open_boundary import (OBCData, OBCParams,
 from mom6_tpu_torch.core.dynamics_unsplit import (UnsplitParams,
                                                   step_dynamics_unsplit_rk2,
                                                   step_dynamics_unsplit_rk3)
-from mom6_tpu_torch.core.pressure_force import pressure_force_fv
+from mom6_tpu_torch.core.pressure_force import (pressure_force_fv,
+                                                 pressure_force_fv_nonbous)
 from mom6_tpu_torch.core.state import OceanState
 from mom6_tpu_torch.diagnostics.mld import diagnose_mld
-from mom6_tpu_torch.diagnostics.wave_speed import wave_speed, wave_speeds
+from mom6_tpu_torch.diagnostics.wave_speed import (wave_speed, wave_speed_wkb,
+                                                   wave_speeds)
 from mom6_tpu_torch.eos import get_eos
-from mom6_tpu_torch.framework.arith import csqrt, sdiv
+from mom6_tpu_torch.framework.arith import csqrt, sdiv, vsum
+from mom6_tpu_torch.framework.stencil import im1, jm1
 from mom6_tpu_torch.physics.lateral.hor_visc import (HorViscParams,
                                                      horizontal_viscosity)
 from mom6_tpu_torch.physics.lateral.internal_tides import (
     InternalTidesParams, step_internal_tides)
+from mom6_tpu_torch.physics.lateral.lateral_mixing_coeffs import (
+    VarMixParams, calc_resoln_function, calc_slope_functions)
 from mom6_tpu_torch.physics.lateral.meke import (MEKEParams, gm_pe_release,
                                                  meke_diffusivity, step_meke)
 from mom6_tpu_torch.physics.lateral.mixed_layer_restrat import (
@@ -97,7 +116,10 @@ from mom6_tpu_torch.physics.vertical.diabatic import (BuoyancyForcing,
                                                       DiabaticParams,
                                                       diabatic_ale,
                                                       diabatic_layered)
+from mom6_tpu_torch.physics.shelf_coupling import (ShelfCoupling,
+                                                   apply_shelf_coupling)
 from mom6_tpu_torch.physics.vertical.epbl import epbl_diffusivity
+from mom6_tpu_torch.physics.vertical.kappa_shear import kappa_shear
 from mom6_tpu_torch.physics.vertical.kpp import (apply_nonlocal_transport,
                                                  kpp_diffusivity)
 from mom6_tpu_torch.physics.vertical.set_viscosity import (SetViscParams,
@@ -119,12 +141,11 @@ __all__ = ["MOMParams", "Forcing", "step_mom", "dyn_accel_diag",
 
 # the reference's optional subsystems; each raises unless it keeps the
 # default given below
-_UNPORTED = ("varmix",
-             "khtr_passivity_coeff", "khtr_max",
+_UNPORTED = ("khtr_passivity_coeff", "khtr_max",
              "khtr_bl", "diabatic_first", "homogenize_forcings",
              "interface_filter", "porous", "zb",
              "stanley_coeff", "tides", "sal_harmonics", "sppt",
-             "skeb_scale", "shelf")
+             "skeb_scale")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,8 +174,9 @@ class MOMParams:
     waves: Optional[WaveParams] = None          # Langmuir mixing
     # low-mode internal tides (needs the state's En_itide)
     int_tides: Optional[InternalTidesParams] = None
+    varmix: Optional[VarMixParams] = None       # USE_VARIABLE_MIXING
+    shelf: Optional[ShelfCoupling] = None       # ICE_SHELF
     # not ported: set to anything but these defaults, they raise
-    varmix: Optional[object] = None
     khtr_passivity_coeff: float = 0.0
     khtr_max: float = 0.0
     khtr_bl: float = 0.0
@@ -168,7 +190,6 @@ class MOMParams:
     sal_harmonics: Optional[object] = None
     sppt: Optional[object] = None
     skeb_scale: float = 0.0
-    shelf: Optional[object] = None
     tfc: Optional[TracerFlowControl] = None     # passive tracer packages
     # unsplit stepping (SPLIT = False): "RK3" or "RK2"
     unsplit: Optional[UnsplitParams] = None
@@ -299,21 +320,33 @@ def _step_mom_impl(state: OceanState, forcing: Forcing, G, GV,
                    p: MOMParams, tend: Optional[dict] = None
                    ) -> OceanState:
     dt_therm = p.dyn.dt * p.n_dyn_per_thermo
+    if p.shelf is not None:
+        # the shelf's pressure and melt fluxes in the forcing every part
+        # of the cycle sees (add_shelf_pressure, add_shelf_flux)
+        forcing, _ = apply_shelf_coupling(state, forcing, G, GV, p.shelf)
     pf_fn = eos = None
     if p.thermo_enabled:
-        if not GV.boussinesq:
-            raise NotImplementedError("step_mom: the non-Boussinesq "
-                                      "pressure force is not ported")
         eos = get_eos(p.eos_name)
-
-        def pf_fn(h, st):
-            return pressure_force_fv(h, st.T, st.S, G, GV, eos,
-                                     p_surf=forcing.mech.p_surf,
-                                     plm_ts=p.pf_recon)
+        if not GV.boussinesq:
+            # h is mass / rho0: the specific-volume form on the masses
+            def pf_fn(h, st):
+                return pressure_force_fv_nonbous(
+                    GV.rho0 * h, st.T, st.S, G, GV, eos,
+                    p_surf=forcing.mech.p_surf)
+        else:
+            def pf_fn(h, st):
+                return pressure_force_fv(h, st.T, st.S, G, GV, eos,
+                                         p_surf=forcing.mech.p_surf,
+                                         plm_ts=p.pf_recon)
+    res_fn, sn_h = _varmix(state, G, GV, p, eos)
     hv_fn = None
     if p.hor_visc is not None:
+        kh_scale = res_fn if (p.varmix is not None
+                              and p.varmix.resoln_scaled_kh) else None
+
         def hv_fn(u, v, h):
-            return horizontal_viscosity(u, v, h, G, p.hor_visc)
+            return horizontal_viscosity(u, v, h, G, p.hor_visc,
+                                        kh_scale=kh_scale)
 
     # the tracer advection starts from the thickness before the bolus
     # updates: uhtr accumulates those same bolus transports
@@ -324,6 +357,16 @@ def _step_mom_impl(state: OceanState, forcing: Forcing, G, GV,
         if use_meke:
             khth_2d = p.gm.khth + meke_diffusivity(state.E_meke, state.h,
                                                    G, p.meke)
+        if p.varmix is not None:
+            vm = p.varmix
+            base = khth_2d if khth_2d is not None \
+                else torch.full_like(G.mask2dT, p.gm.khth)
+            if sn_h is not None and vm.khth_slope_cff > 0.0:
+                base = base + vm.khth_slope_cff \
+                    * vm.visbeck_l_scale ** 2 * sn_h
+            if res_fn is not None and vm.resoln_scaled_khth:
+                base = base * res_fn
+            khth_2d = base
         h_gm, uhd, vhd = thickness_diffuse(state.h, G, GV, dt_therm, p.gm,
                                            khth_2d=khth_2d, T=state.T,
                                            S=state.S, eos=eos)
@@ -394,7 +437,16 @@ def _step_mom_impl(state: OceanState, forcing: Forcing, G, GV,
             tr, kd_redi = neutral_diffusion(tr, state.h, tr[0], tr[1], G,
                                             GV, eos, p.khtr, dt_therm)
         else:
-            tr = tracer_hordiff(tr, state.h, p.khtr, dt_therm, G,
+            khtr_eff = p.khtr
+            if p.varmix is not None:
+                vm = p.varmix
+                khtr_eff = torch.full_like(G.mask2dT, p.khtr)
+                if sn_h is not None and vm.khtr_slope_cff > 0.0:
+                    khtr_eff = khtr_eff + vm.khtr_slope_cff \
+                        * vm.visbeck_l_scale ** 2 * sn_h
+                if res_fn is not None and vm.resoln_scaled_khtr:
+                    khtr_eff = khtr_eff * res_fn
+            tr = tracer_hordiff(tr, state.h, khtr_eff, dt_therm, G,
                                 n_sub=p.khtr_n_sub)
     if tend is not None:
         tend["opottemppmdiff"] = sdiv((tr[0] - T_pre_pm) * state.h,
@@ -407,6 +459,32 @@ def _step_mom_impl(state: OceanState, forcing: Forcing, G, GV,
         state = _with_passive(state, tr[2:], names)
     return _thermo_block(state, forcing, G, GV, p, eos, dt_therm, names,
                          tend, kd_redi=kd_redi)
+
+
+def _varmix(state, G, GV, p: MOMParams, eos):
+    """(Res_fn or None, SN at h points or None) of VarMix from the
+    cycle's starting state: the resolution function from the WKB
+    first-mode speed (the layered stack's sum sqrt(g' hbar) / pi without
+    thermodynamics), the Visbeck slope function where a slope
+    coefficient is on."""
+    vm = p.varmix
+    if vm is None:
+        return None, None
+    res_fn = sn_h = None
+    if vm.resoln_scaled_kh or vm.resoln_scaled_khth or vm.resoln_scaled_khtr:
+        if p.thermo_enabled:
+            cg1 = wave_speed_wkb(state.h, state.T, state.S, G, GV, eos)
+        else:
+            gp = GV.g_prime[1:, None, None]
+            hbar = 0.5 * (state.h[:-1] + state.h[1:])
+            cg1 = sdiv(vsum(csqrt(torch.clamp(gp * hbar, min=0.0))),
+                       math.pi)
+        res_fn = calc_resoln_function(cg1, G, vm)
+    if vm.use_visbeck and (vm.khth_slope_cff > 0.0
+                           or vm.khtr_slope_cff > 0.0):
+        sn_u, sn_v = calc_slope_functions(state.h, G, GV, vm)
+        sn_h = 0.25 * ((sn_u + im1(sn_u)) + (sn_v + jm1(sn_v)))
+    return res_fn, sn_h
 
 
 def assemble_diffusivity_extras(state, forcing, G, GV, p: MOMParams, eos,
@@ -449,12 +527,16 @@ def assemble_diffusivity_extras(state, forcing, G, GV, p: MOMParams, eos,
             components["Kd_BL"] = kd_bl
         kd_extra = kd_bl if kd_extra is None else kd_extra + kd_bl
     if d.use_shear_mixing:
-        if d.shear_scheme not in ("LMD94", "PP81"):
+        if d.shear_scheme == "JHL":
+            kd_sh, _ = kappa_shear(state.h, state.u, state.v, state.T,
+                                   state.S, G, GV, eos, dt=dt_therm)
+        elif d.shear_scheme in ("LMD94", "PP81"):
+            kd_sh = shear_mixing_kd(state.h, state.u, state.v, state.T,
+                                    state.S, G, GV, eos,
+                                    ShearMixingParams(scheme=d.shear_scheme))
+        else:
             raise NotImplementedError(f"shear_scheme {d.shear_scheme} is "
                                       "not ported")
-        kd_sh = shear_mixing_kd(state.h, state.u, state.v, state.T,
-                                state.S, G, GV, eos,
-                                ShearMixingParams(scheme=d.shear_scheme))
         if components is not None:
             components["Kd_shear"] = kd_sh
         kd_extra = kd_sh if kd_extra is None else kd_extra + kd_sh
@@ -522,12 +604,13 @@ def _thermo_block(state, forcing, G, GV, p: MOMParams, eos,
 
     buoy = forcing.buoy
     collect = {} if tend is not None else None
-    T, S, _, passive = diabatic_ale(state.T, state.S, state.h, buoy,
-                                    dt_therm, G, GV, p.diabatic,
-                                    kd_extra=kd_extra,
-                                    extra_tracers=_passive(state, names),
-                                    eos=eos, u=state.u, v=state.v,
-                                    mld=bl_mld, collect=collect)
+    T, S, _, passive, frazil = diabatic_ale(
+        state.T, state.S, state.h, buoy, dt_therm, G, GV, p.diabatic,
+        kd_extra=kd_extra, extra_tracers=_passive(state, names), eos=eos,
+        u=state.u, v=state.v, mld=bl_mld, collect=collect)
+    if frazil is not None and state.frazil is not None:
+        # the heat deficit accumulated for a coupler to collect
+        state = state.replace(frazil=state.frazil + frazil)
     # KPP's nonlocal transport of the heat flux and of the salt and
     # fresh-water fluxes
     if kpp_nonlocal is not None:
@@ -543,21 +626,24 @@ def _thermo_block(state, forcing, G, GV, p: MOMParams, eos,
             S = apply_nonlocal_transport(S, state.h, kpp_nonlocal, s_sfc,
                                          dt_therm)
     if tend is not None:
-        # the surface deposit lands in the top layer of the column solve;
-        # the diapycnal tendency is the rest of the diabatic change (the
-        # KPP nonlocal transport included); the ported column physics
-        # forms no frazil
+        # the surface deposit lands in the top layer of the column solve,
+        # the geothermal heat in the deepest massive layer; the
+        # diapycnal tendency is the rest of the diabatic change (the KPP
+        # nonlocal transport included)
         zcol = torch.zeros_like(T)
         bT, bS = zcol.clone(), zcol.clone()
         if collect["t_flux"] is not None:
             bT[0] += collect["t_flux"]
+        if "geo_heat3d" in collect:
+            bT = bT + collect["geo_heat3d"]
         if collect["s_flux"] is not None:
             bS[0] += collect["s_flux"]
+        fz = collect.get("frazil3d", zcol)
         tend["boundary_forcing_heat_tendency"] = bT
         tend["boundary_forcing_salt_tendency"] = bS
-        tend["frazil_heat_tendency"] = zcol
+        tend["frazil_heat_tendency"] = fz
         tend["opottempdiff"] = sdiv((T - state.T) * state.h, dt_therm) \
-            - bT - zcol
+            - bT - fz
         tend["osaltdiff"] = sdiv((S - state.S) * state.h, dt_therm) - bS
     state = state.replace(T=T, S=S)
     if names:

@@ -14,8 +14,11 @@ are never stacked, advected or masked; and ``obc_res_T``/``obc_res_S``
 (nz, ny, nx), the open boundaries' tracer reservoirs
 (core/open_boundary.py::update_tracer_reservoirs); and ``En_itide``, the
 internal tides' energy density (n_angle, ny, nx) or (n_freq, n_mode,
-n_angle, ny, nx) [J m-2 a bin] (physics/lateral/internal_tides.py).
-build_model_from_params allocates each where its scheme is on.
+n_angle, ny, nx) [J m-2 a bin] (physics/lateral/internal_tides.py); and
+``frazil`` (ny, nx), the frazil heat [J m-2] accumulated since a coupler
+last collected it (None: not tracked, as build_model_from_params leaves
+it, like the reference's builder).
+build_model_from_params allocates the others where their scheme is on.
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ class OceanState(TensorDataclass):
     obc_res_T: Optional[torch.Tensor] = None
     obc_res_S: Optional[torch.Tensor] = None
     En_itide: Optional[torch.Tensor] = None
+    frazil: Optional[torch.Tensor] = None
 
 
 def init_state_resting(grid, vgrid, thicknesses, dtype=torch.float32,

@@ -80,7 +80,7 @@ class DiagContext:
     @property
     def sfc(self):
         return self._get("sfc", lambda: dg.extract_surface_state(
-            self.state, self.G, self.GV))
+            self.state, self.G, self.GV, eos=self.eos))
 
     @property
     def p_int(self):

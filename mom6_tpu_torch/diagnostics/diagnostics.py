@@ -3,8 +3,8 @@
 role of src/core/MOM.F90 extract_surface_state :3954; kinetic_energy_3d,
 ke_budget and column_speed).
 
-The Boussinesq path: the port's vertical grid is Boussinesq only.  On a
-tripolar fold the v faces south of row 0 are read as the southern wall
+In the non-Boussinesq mode, given the EOS, the surface height is the
+geometric one (find_eta_nonbouss).  On a tripolar fold the v faces south of row 0 are read as the southern wall
 (``v_south``), where the reference's kinetic_energy_3d, ke_budget and
 column_speed read the fold row through the wrap; the two agree wherever
 row 0 is land, as on every global grid of the repo.  The global and
@@ -49,13 +49,18 @@ def _top_average(w3, h, depth: float):
 
 def extract_surface_state(state, G, GV, *, hmix_sfc: float = 0.0,
                           hmix_uv_sfc: float = 0.0,
-                          cp: float = 3991.87) -> SurfaceState:
+                          cp: float = 3991.87, eos=None) -> SurfaceState:
     """T/S averaged over HMIX_SFC (0: the top layer), velocities over
     HMIX_UV_SFC, the melt potential over the same depth from the linear
     freezing temperature (the TFREEZE_S0_P default), and the column
-    mass, heat and salt."""
+    mass, heat and salt.  With ``eos`` and a non-Boussinesq ``GV`` the
+    surface height is the geometric, steric one."""
     h = state.h
-    eta = vsum(h) - G.bathyT
+    if not GV.boussinesq and eos is not None and state.T is not None:
+        from mom6_tpu_torch.core.pressure_force import find_eta_nonbouss
+        eta = find_eta_nonbouss(h, state.T, state.S, G, GV, eos)
+    else:
+        eta = vsum(h) - G.bathyT
     if hmix_uv_sfc > 0.0:
         h_u = 0.5 * (h + torch.roll(h, -1, -1))
         h_v = 0.5 * (h + torch.roll(h, -1, -2))

@@ -169,8 +169,9 @@ class BudgetAudit:
     segment-endpoint approximate for restoring); ``drift(stats)``
     returns (change since start) - (net input): zero to rounding for a
     conservative model.  Fresh water is a virtual salt flux here: it
-    moves salt, not mass.  The reference's frazil term is left out with
-    frazil itself (the port's state carries no ``frazil``)."""
+    moves salt, not mass.  The reference's frazil term is left out: the
+    CLI's state carries no ``frazil`` (the builder leaves it None, as the
+    reference's does)."""
 
     def __init__(self, stats0: Dict[str, float], cp: float = _CP_DEFAULT):
         self.m0 = stats0.get("mass")

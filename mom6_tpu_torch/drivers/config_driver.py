@@ -69,13 +69,15 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from mom6_tpu_torch.ale.ale import (ADAPTIVE, HYCOM1, LAYER, ZSTAR,
-                                    ALEParams)
-from mom6_tpu_torch.ale.remapping import PCM, PLM, PPM_H4, PQM_IH4IH3
+from mom6_tpu_torch.ale.ale import (ADAPTIVE, HYCOM1, LAYER, SIGMA,
+                                    SIGMA_SHELF_ZSTAR, ZSTAR, ALEParams)
+from mom6_tpu_torch.ale.remapping import (PCM, PLM, PPM_H4, PPM_IH4,
+                                          PQM_IH4IH3)
 from mom6_tpu_torch.core.barotropic import BTParams, set_dtbt
 from mom6_tpu_torch.core.dynamics_split_rk2 import DynParams, MechForcing
 from mom6_tpu_torch.core.dynamics_unsplit import UnsplitParams
 from mom6_tpu_torch.core.mom import Forcing, MOMParams
+from mom6_tpu_torch.core.pressure_force import geometric_to_mass_h
 from mom6_tpu_torch.core.open_boundary import (SCHEMES, OBCData, OBCSegment,
                                                build_obc, segment_slices)
 from mom6_tpu_torch.core.state import OceanState, init_state_resting
@@ -84,7 +86,7 @@ from mom6_tpu_torch.drivers.user_cases import (hurricane_wind_fn,
                                                neverworld_depth)
 from mom6_tpu_torch.eos import check_ported as check_eos_ported
 from mom6_tpu_torch.eos import get_eos
-from mom6_tpu_torch.framework.arith import csqrt, sdiv
+from mom6_tpu_torch.framework.arith import csqrt, sdiv, vcumsum
 from mom6_tpu_torch.framework.config import ParamFile
 from mom6_tpu_torch.framework.data_override import (TimeSeriesField,
                                                     build_bilinear_map,
@@ -98,16 +100,22 @@ from mom6_tpu_torch.grid.tripolar import make_mosaic
 from mom6_tpu_torch.grid.vertical import VerticalGrid, build_layered_vgrid
 from mom6_tpu_torch.io.netcdf import read_nc
 from mom6_tpu_torch.physics.lateral.hor_visc import HorViscParams
+from mom6_tpu_torch.physics.ice_shelf import IceShelfParams
 from mom6_tpu_torch.physics.lateral.internal_tides import (
     InternalTidesParams, init_int_tide_energy)
+from mom6_tpu_torch.physics.lateral.lateral_mixing_coeffs import \
+    VarMixParams
 from mom6_tpu_torch.physics.lateral.meke import MEKEParams
 from mom6_tpu_torch.physics.lateral.mixed_layer_restrat import \
     MLRestratParams
 from mom6_tpu_torch.physics.lateral.thickness_diffuse import GMParams
 from mom6_tpu_torch.physics.lateral.wave_drag import wave_drag_piston
+from mom6_tpu_torch.physics.shelf_coupling import (ShelfCoupling,
+                                                   trim_columns_for_p_surf)
 from mom6_tpu_torch.physics.vertical.bulk_mixed_layer import BulkMLParams
 from mom6_tpu_torch.physics.vertical.diabatic import (BuoyancyForcing,
                                                       DiabaticParams)
+from mom6_tpu_torch.physics.vertical.opacity import GeothermalParams
 from mom6_tpu_torch.physics.vertical.set_diffusivity import DiffusivityParams
 from mom6_tpu_torch.physics.vertical.set_viscosity import SetViscParams
 from mom6_tpu_torch.physics.vertical.sponge import SpongeParams
@@ -120,12 +128,9 @@ __all__ = ["build_model_from_params", "ModelSetup"]
 
 # switches the reference reads whose subsystem is not ported: the one
 # value accepted (the reference's default, which leaves it off) and the
-# module the reference logs it under (None: read only where it is set,
-# as the reference reads it only where MEKE is on or after its doc)
+# module the reference logs it under
 _INERT = {
-    "BOUSSINESQ": (True, "MOM_verticalGrid"),
     "SPLIT_RK2B": (False, "MOM"),
-    "COORD_CONFIG": ("gprime", "MOM_coord_initialization"),
     "BT_LIN_DRAG": (0.0, "MOM_barotropic"),
     "BT_CDRAG": (0.0, "MOM_barotropic"),
     "DYNAMIC_SURFACE_PRESSURE": (False, "MOM_barotropic"),
@@ -134,20 +139,14 @@ _INERT = {
     "LEITH_KH": (False, "MOM_hor_visc"),
     "USE_QG_LEITH_VISC": (False, "MOM_hor_visc"),
     "ANISOTROPIC_VISCOSITY": (False, "MOM_hor_visc"),
-    "MEKE_VISCOSITY_COEFF_KU": (0.0, None),
-    "MEKE_FRCOEFF": (0.0, None),
     "KHTR_PASSIVITY_COEFF": (0.0, "MOM_tracer_hor_diff"),
     "KHTR_PASSIVITY_MIN": (0.5, "MOM_tracer_hor_diff"),
     "KHTR_MAX": (0.0, "MOM_tracer_hor_diff"),
     "USE_HORIZONTAL_BOUNDARY_DIFFUSION": (False, "MOM_tracer_hor_diff"),
-    "USE_JACKSON_PARAM": (False, "MOM_diabatic_driver"),
-    "GEOTHERMAL_SCALE": (0.0, "MOM_geothermal"),
     "PEN_SW_NBANDS": (0, "MOM_opacity"),
     "USE_CVMIX_CONVECTION": (False, "MOM_diabatic_driver"),
     "DOUBLE_DIFFUSION": (False, "MOM_diabatic_driver"),
     "USE_CVMIX_DDIFF": (False, "MOM_diabatic_driver"),
-    "FRAZIL": (False, "MOM_diabatic_driver"),
-    "TFREEZE_FORM": ("LINEAR", "MOM_diabatic_driver"),
     "DO_BRINE_PLUME": (False, "MOM_diabatic_aux"),
     "APPLY_INTERFACE_FILTER": (False, "MOM_interface_filter"),
     "POROUS_BARRIER": (False, "MOM_porous_barriers"),
@@ -159,10 +158,8 @@ _INERT = {
     "DO_SPPT": (False, "MOM_stochastics"),
     "DO_SKEB": (False, "MOM_stochastics"),
     "USE_GENERIC_TRACER": (False, "MOM_tracer_flow_control"),
-    "USE_VARIABLE_MIXING": (False, "MOM_lateral_mixing_coeffs"),
     "DIABATIC_FIRST": (False, "MOM"),
     "HOMOGENIZE_FORCINGS": (False, "MOM"),
-    "ICE_SHELF": (False, "MOM_ice_shelf"),
     "CONST_DYN_PSURF": (0.9, "MOM_barotropic"),
     "ICE_LENGTH_DYN_PSURF": (10000.0, "MOM_barotropic"),
 }
@@ -170,8 +167,9 @@ _INERT = {
 # the mosaics that are generated and not committed
 _GENERATED = {(720, 400): dict(nx=720, ny_reg=336, ny_cap=64)}
 # the remap schemes and the regrid coordinates the port has
-_SCHEMES = (PCM, PLM, PPM_H4, PQM_IH4IH3)
-_COORDINATES = ("Z*", "ZSTAR", "RHO", HYCOM1, ADAPTIVE)
+_SCHEMES = (PCM, PLM, PPM_H4, PPM_IH4, PQM_IH4IH3)
+_COORDINATES = ("Z*", "ZSTAR", SIGMA, SIGMA_SHELF_ZSTAR, "RHO", HYCOM1,
+                ADAPTIVE)
 
 
 class ModelSetup(NamedTuple):
@@ -196,7 +194,7 @@ def _check_inert(pf: ParamFile) -> None:
     with their defaults where the reference logs them."""
     split = pf.get("SPLIT", bool, default=True, module="MOM")
     for key, (only, module) in _INERT.items():
-        if module is None or (key in _SPLIT_ONLY and not split):
+        if key in _SPLIT_ONLY and not split:
             if not pf.has(key):
                 continue
             value = pf.get(key, type(only))
@@ -232,6 +230,22 @@ def _bowl(nx: int, ny: int, max_depth: float) -> np.ndarray:
     y = (np.arange(ny) + 0.5) / ny - 0.5
     r2 = (2 * x[None, :]) ** 2 + (2 * y[:, None]) ** 2
     return max_depth * (1.0 - 0.8 * r2)
+
+
+def _named_topography(topo_config, nx, ny, max_depth, min_depth):
+    """TOPO_CONFIG = benchmark (a reentrant channel to the south with
+    ridges, benchmark_initialization.F90) or halfpipe (a zonally uniform
+    channel of half-sine section, initialize_topography_named)."""
+    y = ((np.arange(ny) + 0.5) / ny)[:, None]
+    if topo_config == "benchmark":
+        x = ((np.arange(nx) + 0.5) / nx)[None, :]
+        d0 = max_depth / 0.5
+        depth = -d0 * (y * (1.0 + 0.6 * np.cos(4.0 * np.pi * x))
+                       + 0.75 * np.exp(-6.0 * y)
+                       + 0.05 * np.cos(10.0 * np.pi * x) - 0.7)
+        return np.clip(depth, 0.0, max_depth)
+    return (min_depth + (max_depth - min_depth)
+            * np.abs(np.sin(np.pi * y))) * np.ones((ny, nx))
 
 
 def _analytic_topography(pf, topo_config, nx, ny, lenlon, lenlat,
@@ -348,9 +362,9 @@ def _build_grid(pf: ParamFile, dtype, device, input_dir):
     f0 = pf.get("F_0", float, default=0.0, units="s-1", module=m)
     beta = pf.get("BETA", float, default=0.0, units="m-1 s-1", module=m)
     topo_config = _one_of(pf, "TOPO_CONFIG", "flat",
-                          ("flat", "bowl", "file", "seamount", "dome2d",
-                           "dumbbell", "slope", "Kelvin", "shelfwave",
-                           "DOME", "Neverworld"), m)
+                          ("flat", "bowl", "file", "benchmark", "halfpipe",
+                           "seamount", "dome2d", "dumbbell", "slope",
+                           "Kelvin", "shelfwave", "DOME", "Neverworld"), m)
     cyclic_x = pf.get("REENTRANT_X", bool, default=False, module=m)
     reentrant_y = pf.get("REENTRANT_Y", bool, default=False, module=m)
 
@@ -368,6 +382,9 @@ def _build_grid(pf: ParamFile, dtype, device, input_dir):
         depth = None
         if topo_config == "bowl":
             depth = _bowl(nx, ny, max_depth)
+        elif topo_config in ("benchmark", "halfpipe"):
+            depth = _named_topography(topo_config, nx, ny, max_depth,
+                                      min_depth)
         elif topo_config == "file":
             depth = read_topography()
         elif topo_config != "flat":
@@ -925,6 +942,194 @@ class _ForcingProvider:
         return Forcing(mech=mech, buoy=buoy, obc_data=obc_data)
 
 
+def _eos_np(fn, dtype, *arrays, **kw):
+    """``fn`` (an EOS function) of float64 numpy arrays evaluated in the
+    working precision on the CPU, as the reference evaluates it in its
+    default precision, the results as float64 numpy."""
+    out = fn(*(torch.tensor(np.asarray(a, np.float64), dtype=dtype)
+               for a in arrays), **kw)
+    if isinstance(out, tuple):
+        return tuple(o.double().numpy() for o in out)
+    return out.double().numpy()
+
+
+def _coordinate(pf: ParamFile, gv, eos_name, use_thermo, dtype, device):
+    """COORD_CONFIG: the layered grid of GINT (``gprime``, any value but
+    ts_range, as the reference reads it) or, with thermodynamics,
+    ``ts_range`` (set_coord_from_TS_range): the layers' target densities
+    the EOS's at P_REF of a T/S range, the bulk mixed layer's and buffer
+    layers' extrapolated above it, g' from their differences."""
+    mc = "MOM_coord_initialization"
+    coord_cfg = pf.get("COORD_CONFIG", str, default="gprime", module=mc)
+    if coord_cfg != "ts_range" or not use_thermo:
+        return gv
+    nz = gv.nz
+    t_ref = pf.get("T_REF", float, default=10.0, units="degC", module=mc)
+    t_light = pf.get("TS_RANGE_T_LIGHT", float, default=t_ref,
+                     units="degC", module=mc)
+    t_dense = pf.get("TS_RANGE_T_DENSE", float, default=t_ref, units="degC",
+                     module=mc)
+    s_ref = pf.get("S_REF", float, default=35.0, units="ppt", module=mc)
+    s_light = pf.get("TS_RANGE_S_LIGHT", float, default=s_ref, units="ppt",
+                     module=mc)
+    s_dense = pf.get("TS_RANGE_S_DENSE", float, default=s_ref, units="ppt",
+                     module=mc)
+    res_rat = pf.get("TS_RANGE_RESOLN_RATIO", float, default=1.0, module=mc)
+    gfs = pf.get("GFS", float, default=gv.g_earth, units="m s-2", module=mc)
+    p_ref = pf.get("P_REF", float, default=2e7, units="Pa", module=mc)
+    kl0 = 0
+    if pf.get("BULKMIXEDLAYER", bool, default=False, module=mc):
+        kl0 = (pf.get("NKML", int, default=2, module=mc)
+               + pf.get("NKBL", int, default=2, module=mc))
+    if nz < kl0 + 2:
+        raise ValueError("COORD_CONFIG=ts_range needs NK >= NKML+NKBL+2")
+    T0 = np.full(nz, float(t_light))
+    S0 = np.full(nz, float(s_light))
+    a1 = 2.0 * res_rat / (1.0 + res_rat)
+    for k in range(kl0 + 1, nz):
+        kf = (k - kl0) / (nz - 1 - kl0)
+        fd = a1 * kf + (1.0 - a1) * kf * kf
+        T0[k] = t_light + fd * (t_dense - t_light)
+        S0[k] = s_light + fd * (s_dense - s_light)
+    rho0 = float(gv.rho0)
+    rlay = rho0 + _eos_np(get_eos(eos_name).density, dtype, T0, S0,
+                          np.full(nz, p_ref), rho_ref=rho0)
+    for k in range(kl0 - 1, -1, -1):
+        rlay[k] = 2.0 * rlay[k + 1] - rlay[k + 2]
+    gp = np.empty(nz, np.float64)
+    gp[0] = gfs
+    gp[1:] = gv.g_earth * np.diff(rlay) / rho0
+    return gv.replace(g_prime=torch.tensor(gp, dtype=dtype, device=device),
+                      Rlay=torch.tensor(rlay, dtype=dtype, device=device))
+
+
+def _benchmark_t_profile(pf, gv, eos_name, nz, G, m, dtype):
+    """The benchmark case's layer temperatures and SST
+    (benchmark_initialization.F90): T0(k) Newton-solved so that the EOS
+    density at (T0, S_REF, P_REF) is Rlay(k), the mixed and buffer layers
+    (above k1) carrying a latitude-cosine SST.  Returns (T0 (nz,), k1,
+    SST (ny, nx)), float64."""
+    eos = get_eos(eos_name)
+    s_ref = pf.get("S_REF", float, default=35.0, units="ppt", module=m)
+    t_light = pf.get("BENCHMARK_T_LIGHT", float, default=29.0,
+                     units="degC", module=m)
+    p_ref = pf.get("P_REF", float, default=2e7, units="Pa", module=m)
+    k1 = 0
+    if pf.get("BULKMIXEDLAYER", bool, default=False, module=m):
+        k1 = (pf.get("NKML", int, default=2, module=m)
+              + pf.get("NKBL", int, default=2, module=m))
+    k1 = min(k1, nz - 1)
+    rlay = gv.Rlay.cpu().numpy().astype(np.float64)
+    rho0 = float(gv.rho0)
+    S = np.full(nz, s_ref)
+    P = np.full(nz, p_ref)
+
+    def rho_of(T):
+        return rho0 + _eos_np(eos.density, dtype, T, S, P, rho_ref=rho0)
+
+    dT1, _ = _eos_np(eos.density_derivs, dtype, t_light, s_ref, p_ref)
+    T0 = t_light + (rlay - rho_of(np.full(nz, t_light))[k1]) / float(dT1)
+    for _ in range(6):
+        dT, _ = _eos_np(eos.density_derivs, dtype, T0, S, P)
+        T0 = T0 + (rlay - rho_of(T0)) / dT
+    lat = G.geoLatT.cpu().numpy().astype(np.float64)
+    yfrac = (lat - lat.min()) / max(lat.max() - lat.min(), 1e-30)
+    sst = (0.5 * (T0[k1] + T0[-1])
+           - 0.45 * (T0[k1] - T0[-1]) * np.cos(np.pi * yfrac))
+    return T0, k1, sst
+
+
+def _benchmark_thickness(pf, G, gv, eos_name, nz, max_depth, m, dtype):
+    """THICKNESS_CONFIG = benchmark (benchmark_initialize_thickness): each
+    interface where the latitude-dependent profile (an exponential
+    thermocline over a linear stratification) crosses the mean of its
+    layers' target temperatures, Newton-solved, kept below the mixed
+    layer and above the bottom; float64 numpy (nz, ny, nx)."""
+    T0, _, sst = _benchmark_t_profile(pf, gv, eos_name, nz, G, m, dtype)
+    ml_depth = pf.get("BENCHMARK_ML_DEPTH_IC", float, default=50.0,
+                      units="m", module=m)
+    ts_scale = pf.get("BENCHMARK_THERMOCLINE_SCALE", float, default=500.0,
+                      units="m", module=m)
+    a_exp = 0.9
+    depth = G.bathyT.cpu().numpy().astype(np.float64)
+    eta = np.zeros((nz + 1, G.ny, G.nx))
+    eta[nz] = -depth
+    t_bot = T0[nz - 1]
+    for K in range(nz - 1, 0, -1):
+        t_int = 0.5 * (T0[K] + T0[K - 1])
+        t_frac = (t_int - t_bot) / np.maximum(sst - t_bot, 1e-10)
+        z = np.zeros_like(depth)
+        for _ in range(6):
+            ez = np.exp(z / ts_scale)
+            err = a_exp * ez + (1.0 - a_exp) * (z / max_depth + 1.0) - t_frac
+            derr = a_exp * ez / ts_scale + (1.0 - a_exp) / max_depth
+            z = z - err / derr
+        e = np.minimum(np.maximum(z, -depth), -ml_depth)
+        eta[K] = np.maximum(e, eta[K + 1] + float(gv.angstrom))
+    return np.maximum(eta[:-1] - eta[1:], float(gv.angstrom))
+
+
+def _ice_shelf(pf, G, gv, state, use_thermo, eos_name, dtype, device,
+               input_dir):
+    """ICE_SHELF: a prescribed shelf (ICE_PROFILE_CONFIG = linear, a draft
+    tapering from the western edge to SHELF_EDGE_FRAC, or file) floating
+    hydrostatically with SHELF_MIN_OCEAN_GAP of water under it, its melt
+    parameters, and with TRIM_IC_FOR_P_SURF the initial columns trimmed
+    to the shelf's weight (the density the EOS's at the mid-layer
+    pressure).  Returns (ShelfCoupling or None, state)."""
+    m = "MOM_ice_shelf"
+    if not pf.get("ICE_SHELF", bool, default=False, module=m):
+        return None, state
+    rho_ice = pf.get("DENSITY_ICE", float, default=918.0, units="kg m-3",
+                     module=m)
+    prof = _one_of(pf, "ICE_PROFILE_CONFIG", "linear", ("linear", "file"), m)
+    if prof == "linear":
+        draft_max = pf.get("SHELF_MAX_DRAFT", float, default=700.0,
+                           units="m", module=m)
+        edge = pf.get("SHELF_EDGE_FRAC", float, default=0.5, module=m)
+        xf = (np.arange(G.nx) + 0.5) / G.nx
+        draft = draft_max * np.maximum(0.0, 1.0 - xf / max(edge, 1e-6))
+        draft = np.broadcast_to(draft[None, :], (G.ny, G.nx)).copy()
+    else:
+        sfile = pf.get("SHELF_FILE", str, module=m)
+        svar = pf.get("SHELF_DRAFT_VAR", str, default="draft", module=m)
+        draft = np.asarray(read_nc(_input_path(pf, sfile, input_dir))[svar],
+                           np.float64)
+    gap = pf.get("SHELF_MIN_OCEAN_GAP", float, default=10.0, units="m",
+                 module=m)
+    # in the grid's working precision, as the reference's numpy
+    draft = np.minimum(draft, G.bathyT.cpu().numpy() - gap)
+    draft = np.maximum(draft, 0.0) * G.mask2dT.cpu().numpy()
+    mass_shelf = torch.tensor(gv.rho0 * draft, dtype=dtype, device=device)
+    frac = torch.tensor((draft > 1.0).astype(np.float64), dtype=dtype,
+                        device=device)
+    melt = IceShelfParams(
+        gamma_t=pf.get("SHELF_GAMMA_T", float, default=1e-4, units="m s-1",
+                       module=m),
+        gamma_s=pf.get("SHELF_GAMMA_S", float, default=2.86e-6,
+                       units="m s-1", module=m),
+        rho_i=rho_ice, rho_w=gv.rho0)
+    shelf = ShelfCoupling(
+        mass_shelf=mass_shelf, frac_shelf_h=frac, melt=melt,
+        flux_factor=pf.get("SHELF_FLUX_FACTOR", float, default=1.0,
+                           module=m),
+        ustar_dependent=pf.get("SHELF_USTAR_GAMMA", bool, default=False,
+                               module=m),
+        utide=pf.get("SHELF_UTIDE", float, default=0.0, units="m s-1",
+                     module=m))
+    if pf.get("TRIM_IC_FOR_P_SURF", bool, default=True, module=m) \
+            and use_thermo:
+        press = gv.g_earth * mass_shelf * frac
+        rho = gv.rho0 + get_eos(eos_name).density(
+            state.T, state.S, gv.rho0 * gv.g_earth
+            * (vcumsum(state.h) - 0.5 * state.h), rho_ref=gv.rho0)
+        h_t, _, _ = trim_columns_for_p_surf(state.h, state.T, state.S, rho,
+                                            press, gv.g_earth,
+                                            min_thickness=float(gv.angstrom))
+        state = state.replace(h=h_t)
+    return shelf, state
+
+
 def build_model_from_params(pf: ParamFile, *, dtype=torch.float32,
                             device=DEFAULT_DEVICE,
                             input_dir: Optional[str] = None,
@@ -947,7 +1152,8 @@ def build_model_from_params(pf: ParamFile, *, dtype=torch.float32,
         rho0=pf.get("RHO_0", float, default=1035.0, units="kg m-3", module=m),
         gprime_int=pf.get("GINT", float, default=9.8e-3, units="m s-2",
                           module=m),
-        dtype=dtype, device=device)
+        dtype=dtype, device=device,
+        boussinesq=pf.get("BOUSSINESQ", bool, default=True, module=m))
 
     m = "MOM"
     dt = pf.get("DT", float, module=m, units="s")
@@ -958,6 +1164,7 @@ def build_model_from_params(pf: ParamFile, *, dtype=torch.float32,
                         module=m)
     eos_name = pf.get("EQN_OF_STATE", str, default="WRIGHT", module=m)
     check_eos_ported(eos_name)
+    gv = _coordinate(pf, gv, eos_name, use_thermo, dtype, device)
 
     m = "MOM_barotropic"
     unsplit = None
@@ -1036,7 +1243,14 @@ def build_model_from_params(pf: ParamFile, *, dtype=torch.float32,
             a_eady=mk("MEKE_ALPHA_EADY", 0.0),
             a_grid=mk("MEKE_ALPHA_GRID", 0.0),
             l_fixed=mk("MEKE_FIXED_MIXING_LENGTH", 0.0),
-            topo_beta=mk("MEKE_TOPOGRAPHIC_BETA", 0.0))
+            topo_beta=mk("MEKE_TOPOGRAPHIC_BETA", 0.0),
+            fr_coeff=mk("MEKE_FRCOEFF", 0.0),
+            ku_coeff=mk("MEKE_VISCOSITY_COEFF_KU", 0.0))
+        for key, value in (("MEKE_FRCOEFF", meke.fr_coeff),
+                           ("MEKE_VISCOSITY_COEFF_KU", meke.ku_coeff)):
+            if value != 0.0:
+                raise NotImplementedError(f"{key} = {value!r} is not "
+                                          "ported (only 0.0)")
 
     m = "MOM_mixed_layer_restrat"
     mlr = None
@@ -1109,8 +1323,22 @@ def build_model_from_params(pf: ParamFile, *, dtype=torch.float32,
             else "KPP" if pf.get("USE_KPP", bool, default=False, module=m)
             else ("EPBL" if pf.get("ENERGETICS_SFC_PBL", bool,
                                    default=False, module=m) else "NONE")),
-        use_shear_mixing=pf.get("USE_CVMIX_SHEAR", bool, default=False,
-                                module=m))
+        use_shear_mixing=(pf.get("USE_CVMIX_SHEAR", bool, default=False,
+                                 module=m)
+                          or pf.get("USE_JACKSON_PARAM", bool, default=False,
+                                    module=m)),
+        shear_scheme=("JHL" if pf.get("USE_JACKSON_PARAM", bool,
+                                      default=False, module=m)
+                      else "LMD94"),
+        frazil=pf.get("FRAZIL", bool, default=False, module=m),
+        tfreeze_form=_one_of(pf, "TFREEZE_FORM", "LINEAR",
+                             ("LINEAR", "MILLERO_78", "TEOS_POLY", "TEOS10"),
+                             m))
+    geo_scale = pf.get("GEOTHERMAL_SCALE", float, default=0.0,
+                       units="W m-2", module="MOM_geothermal")
+    if geo_scale > 0.0:
+        diab = dataclasses.replace(diab, geothermal=GeothermalParams(
+            heat_flux=geo_scale))
 
     # the bottom boundary layer: set_viscous_BBL and the mixing its drag
     # sustains
@@ -1183,6 +1411,14 @@ def build_model_from_params(pf: ParamFile, *, dtype=torch.float32,
             ale = ALEParams(mode=mode, rho_targets=tuple(rlay),
                             dz_nominal=tuple(dz) if mode == HYCOM1 else (),
                             eos_name=eos_name, scheme=remap_scheme)
+        elif mode == SIGMA:
+            ale = ALEParams(mode=SIGMA, scheme=remap_scheme)
+        elif mode == SIGMA_SHELF_ZSTAR:
+            ale = ALEParams(
+                mode=SIGMA_SHELF_ZSTAR, dz_nominal=tuple(dz),
+                scheme=remap_scheme,
+                shelf_depth=pf.get("SIGMA_SHELF_ZSTAR_DEPTH", float,
+                                   default=200.0, units="m", module=m))
         elif mode == ADAPTIVE:
             ale = ALEParams(
                 mode=ADAPTIVE, dz_nominal=tuple(dz), eos_name=eos_name,
@@ -1227,6 +1463,27 @@ def build_model_from_params(pf: ParamFile, *, dtype=torch.float32,
                              module=m))
     tfc = _tracer_packages(pf)
 
+    m = "MOM_lateral_mixing_coeffs"
+    varmix = None
+    if pf.get("USE_VARIABLE_MIXING", bool, default=False, module=m):
+        varmix = VarMixParams(
+            resoln_scaled_kh=pf.get("RESOLN_SCALED_KH", bool, default=False,
+                                    module=m),
+            resoln_scaled_khth=pf.get("RESOLN_SCALED_KHTH", bool,
+                                      default=False, module=m),
+            resoln_scaled_khtr=pf.get("RESOLN_SCALED_KHTR", bool,
+                                      default=False, module=m),
+            use_visbeck=pf.get("USE_VISBECK", bool, default=False, module=m),
+            res_coef=pf.get("KH_RES_SCALE_COEF", float, default=1.0,
+                            module=m),
+            res_fn_power=pf.get("KH_RES_FN_POWER", int, default=2, module=m),
+            khth_slope_cff=pf.get("KHTH_SLOPE_CFF", float, default=0.0,
+                                  module="MOM_thickness_diffuse"),
+            khtr_slope_cff=pf.get("KHTR_SLOPE_CFF", float, default=0.0,
+                                  module="MOM_tracer_hor_diff"),
+            visbeck_l_scale=pf.get("VISBECK_L_SCALE", float, default=0.0,
+                                   units="m", module=m))
+
     params = MOMParams(
         dyn=dyn, thermo_enabled=use_thermo, eos_name=eos_name,
         diabatic=diab, ale=ale, hor_visc=hv, gm=gm, meke=meke,
@@ -1234,7 +1491,7 @@ def build_model_from_params(pf: ParamFile, *, dtype=torch.float32,
         n_dyn_per_thermo=n_dyn_per_thermo, tfc=tfc, obc=obc,
         bbl_visc=bbl_visc, waves=waves, unsplit=unsplit,
         unsplit_scheme=unsplit_scheme, int_tides=int_tides,
-        neutral_diffusion=use_ndiff,
+        neutral_diffusion=use_ndiff, varmix=varmix,
         ndiff_scheme=_ndiff_scheme(pf),
         tracer_advect_sub=pf.get("TRACER_ADVECT_SUB", int,
                                  default=max(2, n_dyn_per_thermo),
@@ -1249,11 +1506,16 @@ def build_model_from_params(pf: ParamFile, *, dtype=torch.float32,
     # or a front and uniform S_REF under thermodynamics -------------------
     m = "MOM_state_initialization"
     thick_cfg = _one_of(pf, "THICKNESS_CONFIG", "uniform",
-                        ("uniform", "circle_obcs", "sloshing",
+                        ("uniform", "circle_obcs", "benchmark", "sloshing",
                          "internal_wave", "gwave", "soliton", "phillips"), m)
     state = init_state_resting(G, gv, np.full(nz, max_depth / nz),
                                dtype=dtype, with_thermo=use_thermo)
-    if thick_cfg == "circle_obcs":
+    if thick_cfg == "benchmark":
+        if use_thermo:
+            state = state.replace(h=torch.tensor(
+                _benchmark_thickness(pf, G, gv, eos_name, nz, max_depth, m,
+                                     dtype), dtype=dtype, device=device))
+    elif thick_cfg == "circle_obcs":
         state = state.replace(h=_circle_obcs(pf, G, state, nz, m))
     elif thick_cfg != "uniform":
         state = state.replace(**_displaced(pf, thick_cfg, G, gv, state,
@@ -1266,11 +1528,19 @@ def build_model_from_params(pf: ParamFile, *, dtype=torch.float32,
             int_tides, G.ny, G.nx, dtype, device))
     if use_thermo:
         ts_cfg = _one_of(pf, "TS_CONFIG", "fit",
-                         ("fit", "front", "rossby_front"), m)
+                         ("fit", "benchmark", "front", "rossby_front"), m)
         t_ref = pf.get("T_REF", float, default=10.0, units="degC", module=m)
         s_ref = pf.get("S_REF", float, default=35.0, units="ppt", module=m)
         shape = tuple(state.h.shape)
-        if ts_cfg == "front":
+        if ts_cfg == "benchmark":
+            # the layers' target temperatures, the SST in the mixed and
+            # buffer layers
+            T0, k1, sst = _benchmark_t_profile(pf, gv, eos_name, nz, G, m,
+                                               dtype)
+            tprof = np.broadcast_to(T0[:, None, None], shape).copy()
+            tprof[:k1] = sst[None]
+            T = torch.tensor(tprof, dtype=dtype, device=device)
+        elif ts_cfg == "front":
             tfield = _front(pf, G, t_ref, m)
             T = torch.tensor(np.broadcast_to(tfield[None], shape),
                              dtype=dtype, device=device)
@@ -1379,7 +1649,8 @@ def build_model_from_params(pf: ParamFile, *, dtype=torch.float32,
     heat = t_restore = None
     restore_rate = 0.0
     buoy = _one_of(pf, "BUOY_CONFIG", "zero",
-                   ("zero", "NS_heating", "const", "global", "file"), m)
+                   ("zero", "NS_heating", "const", "global", "file",
+                    "linear"), m)
     buoy_ts = None
     if buoy == "NS_heating":
         # HEATING_MAGNITUDE cos(pi y / LENLAT), y the distance north [m]
@@ -1427,6 +1698,21 @@ def build_model_from_params(pf: ParamFile, *, dtype=torch.float32,
                 if var else None
         buoy_ts = (series(hvar), series(swvar), series(fwvar),
                    _bilinear(raw, G))
+    elif buoy == "linear" and not use_thermo:
+        raise NotImplementedError("BUOY_CONFIG = 'linear' needs "
+                                  "ENABLE_THERMODYNAMICS")
+    elif buoy == "linear" and pf.get("RESTOREBUOY", bool, default=False,
+                                     module=m):
+        # buoyancy_forcing_linear: SST restored with the piston velocity
+        # FLUXCONST [m day-1] toward a profile linear in latitude
+        restore_rate = pf.get("FLUXCONST", float, default=0.0,
+                              units="m day-1", module=m) / 86400.0
+        sst_n = pf.get("SST_NORTH", float, default=25.0, units="degC",
+                       module=m)
+        sst_s = pf.get("SST_SOUTH", float, default=10.0, units="degC",
+                       module=m)
+        yfrac = (lat - lat.min()) / max(lat.max() - lat.min(), 1e-30)
+        t_restore = field(sst_s + (sst_n - sst_s) * yfrac)
     forcing = Forcing(mech=MechForcing(taux=taux, tauy=tauy),
                       buoy=BuoyancyForcing(heat_flux=heat,
                                            t_restore=t_restore,
@@ -1475,6 +1761,17 @@ def build_model_from_params(pf: ParamFile, *, dtype=torch.float32,
             dtype=dtype, device=device) * G.mask2dT
         params = params.replace(sponge=SpongeParams(
             idamp=idamp, T_ref=state.T, S_ref=state.S))
+
+    shelf, state = _ice_shelf(pf, G, gv, state, use_thermo, eos_name, dtype,
+                              device, input_dir)
+    if shelf is not None:
+        params = params.replace(shelf=shelf)
+    if not gv.boussinesq and use_thermo:
+        # the prognostic h of the non-Boussinesq mode is mass / rho0: the
+        # geometric thicknesses above converted with the hydrostatic
+        # in-situ density (convert_thickness)
+        state = state.replace(h=geometric_to_mass_h(
+            state.h, state.T, state.S, gv, get_eos(eos_name)).to(dtype))
 
     # the reference reads DRHO_DT only for the DOME inflow; its LINEAR EOS
     # is fixed at -0.2, the one value accepted elsewhere

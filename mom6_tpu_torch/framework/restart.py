@@ -19,14 +19,16 @@ save_restart, restore_state, query_initialized):
 Divergence from the reference (its registry, solo.py:217-231):
 ``register_state`` registers exactly the fields the state carries: h, u,
 v, uh, vh, uhtr, vhtr; T and S; ``kv_shear``, ``E_meke``, the open
-boundaries' tracer reservoirs ``obc_res_T``/``obc_res_S`` and the
-internal tides' energy ``En_itide`` where they are allocated; and every
+boundaries' tracer reservoirs ``obc_res_T``/``obc_res_S``, the
+internal tides' energy ``En_itide`` and the accumulated frazil heat
+``frazil`` where they are allocated; and every
 tensor of ``state.tr``, the packages' 0-dim clocks included (as
 ``tr_<name>``).  The reference registers ``kv_shear`` whenever KPP, ePBL
 or shear mixing is on, although the layered coordinate does not
 allocate it (a layered restore then raises KeyError), and registers
-neither ``E_meke``, the passive tracers, the reservoirs nor
-``En_itide``, so a split MEKE, tracer, reservoir or internal-tide run
+neither ``E_meke``, the passive tracers, the reservoirs, ``En_itide``
+nor ``frazil``, so a split MEKE, tracer, reservoir, internal-tide or
+frazil-accumulating run
 does not equal a straight one (its reservoirs restart from the initial
 T and S, its internal-tide energy from zero).  Its
 ``restore_state`` also casts to float32 unless told otherwise, so its
@@ -51,7 +53,7 @@ __all__ = ["RestartRegistry", "TRACER_PREFIX", "restart_differences"]
 TRACER_PREFIX = "tr_"
 _BASE = ("h", "u", "v", "uh", "vh", "uhtr", "vhtr")
 _OPTIONAL = ("T", "S", "kv_shear", "E_meke", "obc_res_T", "obc_res_S",
-             "En_itide")
+             "En_itide", "frazil")
 
 
 @dataclasses.dataclass

@@ -1,15 +1,17 @@
 """Carry a configuration across from the JAX reference to the port.
 
-The reference's ``Grid``, ``VerticalGrid``, ``OceanState`` (T, S,
-E_meke, kv_shear, En_itide and the passive tracers ``tr`` with the packages'
-0-dim clocks included), ``MechForcing`` or ``Forcing`` (with its
+The reference's ``Grid``, ``VerticalGrid`` (its ``boussinesq`` flag
+included), ``OceanState`` (T, S, E_meke, kv_shear, En_itide, frazil and
+the passive tracers ``tr`` with the packages' 0-dim clocks included), ``MechForcing`` or ``Forcing`` (with its
 ``BuoyancyForcing``) and ``DynParams`` or ``MOMParams`` (with the
 ``BTParams``, ``ALEParams``, ``HorViscParams``, ``GMParams``,
 ``MEKEParams``, ``MLRestratParams``, ``DiabaticParams``,
 ``DiffusivityParams``, ``BulkMLParams``, ``EntrainDiffusiveParams``,
 ``SetViscParams``, ``WaveParams``, ``SpongeParams``, ``UnsplitParams``,
-``OBCParams``, ``TidalMixingParams`` and ``InternalTidesParams`` they
-nest, the barotropic ``lin_drag`` map of the tidal wave drag,
+``OBCParams``, ``TidalMixingParams``, ``InternalTidesParams``,
+``VarMixParams``, ``GeothermalParams``, ``KappaShearParams`` and the
+ice shelf's ``ShelfCoupling`` with its ``IceShelfParams`` they nest, the
+barotropic ``lin_drag`` map of the tidal wave drag,
 and the tracer packages of its ``TracerFlowControl``), the open
 boundaries' ``OBCData`` and the BT_cont curves ``BTCont`` are exported
 with :func:`export`
@@ -41,7 +43,10 @@ from mom6_tpu_torch.framework.device import DEFAULT_DEVICE, resolve_device
 from mom6_tpu_torch.grid.grid import Grid
 from mom6_tpu_torch.grid.vertical import VerticalGrid
 from mom6_tpu_torch.physics.lateral.hor_visc import HorViscParams
+from mom6_tpu_torch.physics.ice_shelf import IceShelfParams
 from mom6_tpu_torch.physics.lateral.internal_tides import InternalTidesParams
+from mom6_tpu_torch.physics.lateral.lateral_mixing_coeffs import \
+    VarMixParams
 from mom6_tpu_torch.physics.lateral.meke import MEKEParams
 from mom6_tpu_torch.physics.lateral.mixed_layer_restrat import \
     MLRestratParams
@@ -49,8 +54,11 @@ from mom6_tpu_torch.physics.lateral.thickness_diffuse import GMParams
 from mom6_tpu_torch.physics.vertical.bulk_mixed_layer import BulkMLParams
 from mom6_tpu_torch.physics.vertical.diabatic import (BuoyancyForcing,
                                                       DiabaticParams)
+from mom6_tpu_torch.physics.shelf_coupling import ShelfCoupling
 from mom6_tpu_torch.physics.vertical.entrain_diffusive import \
     EntrainDiffusiveParams
+from mom6_tpu_torch.physics.vertical.kappa_shear import KappaShearParams
+from mom6_tpu_torch.physics.vertical.opacity import GeothermalParams
 from mom6_tpu_torch.physics.vertical.set_diffusivity import DiffusivityParams
 from mom6_tpu_torch.physics.vertical.set_viscosity import SetViscParams
 from mom6_tpu_torch.physics.vertical.sponge import SpongeParams
@@ -65,15 +73,14 @@ __all__ = ["export", "load_grid", "load_vgrid", "load_state",
 # reference fields with no counterpart in the port that may carry a
 # value: each only tunes a subsystem that is not ported (the wide-halo
 # subcycle, the dynamic surface pressure, the passivity floor of tracer
-# diffusion, the SIGMA_SHELF_ZSTAR and HYBGEN regrid modes, frazil, the
-# brine plume, anisotropic viscosity), which the port rejects where it is
-# switched on
+# diffusion, the HYBGEN regrid mode, the brine plume, anisotropic
+# viscosity), which the port rejects where it is switched on
 _DROPPED = {
     "BTParams": {"halo_per_substep", "const_dyn_psurf",
                  "ice_strength_length", "dmin_dyn_psurf"},
     "MOMParams": {"khtr_passivity_min"},
-    "ALEParams": {"shelf_depth", "hybgen_qrlx"},
-    "DiabaticParams": {"tfreeze_form", "brine_plume_n", "brine_plume_frac"},
+    "ALEParams": {"hybgen_qrlx"},
+    "DiabaticParams": {"brine_plume_n", "brine_plume_frac"},
     "HorViscParams": {"aniso_mode", "aniso_n"},
 }
 # reference fields whose value the port fixes as a constant: the
@@ -86,7 +93,9 @@ _PARAMS = {c.__name__: c for c in (DynParams, BTParams, MOMParams,
                                    UnsplitParams, BulkMLParams,
                                    EntrainDiffusiveParams, SetViscParams,
                                    WaveParams, TidalMixingParams,
-                                   InternalTidesParams)}
+                                   InternalTidesParams, VarMixParams,
+                                   GeothermalParams, KappaShearParams,
+                                   IceShelfParams)}
 # the ported tracer packages (the NPZD generic tracer is not ported)
 _PACKAGES = {c.__name__: c for c in (
     packages.IdealAge, packages.RegionalDye, packages.RegionalDyes,
@@ -238,6 +247,10 @@ def load_params(d: dict, device=DEFAULT_DEVICE, dtype=torch.float32):
             v = load_obc(v, device, dtype)
         elif isinstance(v, dict) and v.get("__type__") == "SpongeParams":
             v = SpongeParams(**_tensors(SpongeParams, v, device, dtype))
+        elif isinstance(v, dict) and v.get("__type__") == "ShelfCoupling":
+            kw_s = _tensors(ShelfCoupling, v, device, dtype)
+            kw_s["melt"] = load_params(kw_s["melt"], device, dtype)
+            v = ShelfCoupling(**kw_s)
         elif isinstance(v, dict) and v.get("__type__") == \
                 "TracerFlowControl":
             v = load_tfc(v)

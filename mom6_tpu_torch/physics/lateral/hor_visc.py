@@ -3,10 +3,11 @@
 
 Stress-tensor form on the C grid: tension sh_xx at h points, shear sh_xy
 at q points (no slip through the q mask), constant and Smagorinsky
-coefficients with the explicit stability bound; the biharmonic operator
-is the same stress divergence applied to -del2(u).  Leith, QG Leith,
-anisotropic viscosity, MEKE backscatter and resolution scaling are not
-ported and raise.
+coefficients with the explicit stability bound, the Laplacian one
+scaled by VarMix's resolution function where given; the biharmonic
+operator is the same stress divergence applied to -del2(u).  Leith, QG
+Leith, anisotropic viscosity and MEKE backscatter are not ported and
+raise.
 """
 
 from __future__ import annotations
@@ -86,13 +87,15 @@ def horizontal_viscosity(u, v, h, G, p: HorViscParams,
     for name, on in (("leith_lap_const", p.leith_lap_const),
                      ("use_qg_leith", p.use_qg_leith),
                      ("kh_aniso", p.kh_aniso),
-                     ("ku_backscatter", ku_backscatter is not None),
-                     ("kh_scale", kh_scale is not None)):
+                     ("ku_backscatter", ku_backscatter is not None)):
         if on:
             raise NotImplementedError(f"horizontal_viscosity: {name} is "
                                       "not ported")
     sh_xx, sh_xy = _strains(u, v, G)
     kh_h, ah_h = _coefficients(sh_xx, sh_xy, G, p)
+    if kh_scale is not None:
+        # VarMix's resolution function (RESOLN_SCALED_KH)
+        kh_h = kh_h * kh_scale
     kfold = "h" if getattr(G, "fold_north", False) else None
     diffu = torch.zeros_like(u)
     diffv = torch.zeros_like(v)

@@ -3,19 +3,23 @@
 diabatic_layered).
 
 ALE mode (diabatic_ale):
-  set_diffusivity (background / BBL mixing / Bryan-Lewis + the extras
-  passed in)
+  geothermal heating of each column's deepest massive layer
+  -> set_diffusivity (background / BBL mixing / Bryan-Lewis + the extras
+     passed in)
   -> surface heat, salt and fresh-water fluxes, restoring and the
      shortwave flux without an opacity profile, into the top layer
-  -> implicit vertical diffusion of T, S and any passive tracers.
+  -> implicit vertical diffusion of T, S and any passive tracers
+  -> frazil: layers below their freezing point (TFREEZE_FORM at the
+     hydrostatic mid-layer pressure) are reset to it and the heat
+     deficit is returned.
 
 Layered mode (diabatic_layered, BULKMIXEDLAYER): the surface fluxes into
 the top layer, the bulk mixed layer, the background diffusivity as
 entrainment between the density layers, then u and v remapped onto the
 new layers.
 
-Geothermal heating, opacity, convection, double diffusion, the brine
-plume and frazil are not ported and raise.
+Opacity, convection, double diffusion and the brine plume are not
+ported and raise.
 """
 
 from __future__ import annotations
@@ -26,13 +30,16 @@ from typing import Optional
 import torch
 
 from mom6_tpu_torch.ale.remapping import remap_column
-from mom6_tpu_torch.framework.arith import csqrt, sdiv
+from mom6_tpu_torch.eos.tfreeze import get_tfreeze
+from mom6_tpu_torch.framework.arith import csqrt, sdiv, vcumsum, vsum
 from mom6_tpu_torch.framework.containers import TensorDataclass
 from mom6_tpu_torch.framework.stencil import ip1, jp1
 from mom6_tpu_torch.physics.vertical.bulk_mixed_layer import (
     BulkMLParams, bulkmixedlayer)
 from mom6_tpu_torch.physics.vertical.entrain_diffusive import (
     EntrainDiffusiveParams, entrainment_diffusive)
+from mom6_tpu_torch.physics.vertical.opacity import (GeothermalParams,
+                                                     geothermal_heating)
 from mom6_tpu_torch.physics.vertical.set_diffusivity import (
     DiffusivityParams, set_diffusivity)
 from mom6_tpu_torch.tracers.vert_diff import tracer_vertdiff
@@ -60,17 +67,31 @@ class DiabaticParams:
     cp: float = 3991.87            # C_P [J kg-1 K-1]
     boundary_layer_scheme: str = "NONE"   # NONE | KPP | EPBL | BULKML
     use_shear_mixing: bool = False
-    shear_scheme: str = "LMD94"           # LMD94 | PP81 (JHL raises)
+    shear_scheme: str = "LMD94"           # LMD94 | PP81 | JHL
     # the layered mode's (BULKML)
     bulkml: Optional[BulkMLParams] = None
     entrain: Optional[EntrainDiffusiveParams] = None
+    geothermal: Optional[GeothermalParams] = None
+    frazil: bool = False                  # make_frazil
+    tfreeze_form: str = "LINEAR"          # TFREEZE_FORM
     # not ported when set
-    geothermal: Optional[object] = None
     opacity: Optional[object] = None
     convection: Optional[object] = None
     ddiff: Optional[object] = None
-    frazil: bool = False
     do_brine_plume: bool = False
+
+
+def _make_frazil(T, S, h, GV, cp, tfreeze_form: str = "LINEAR"):
+    """Frazil formation (make_frazil, MOM_diabatic_aux.F90): a layer
+    below its freezing point at the hydrostatic mid-layer pressure is
+    reset to it, the heat deficit [J m-2] summed over the column.
+    Returns (T_new, frazil heat, the deficit per layer [degC m])."""
+    z_mid = vcumsum(h) - 0.5 * h
+    p_mid = GV.rho0 * GV.g_earth * z_mid
+    t_fr = get_tfreeze(tfreeze_form)(S, p_mid)
+    deficit = torch.clamp(t_fr - T, min=0.0)
+    frazil = vsum(deficit * h) * GV.rho0 * cp
+    return torch.maximum(T, t_fr), frazil, deficit * h
 
 
 def diabatic_ale(T, S, h, forcing: BuoyancyForcing, dt, G, GV,
@@ -82,12 +103,19 @@ def diabatic_ale(T, S, h, forcing: BuoyancyForcing, dt, G, GV,
     not ported (it raises where it is set).
     ``collect`` (a dict), if given, receives the masked surface deposits
     of the solve, ``t_flux`` and ``s_flux`` [conc m s-1] (None without
-    one), for the tendency diagnostics.
-    Returns (T_new, S_new, kd, extra_tracers_new)."""
-    for name in ("geothermal", "convection", "ddiff", "frazil",
-                 "do_brine_plume"):
+    one), and with geothermal heating ``geo_heat3d``, with frazil
+    ``frazil3d`` [degC m s-1], for the tendency diagnostics.
+    Returns (T_new, S_new, kd, extra_tracers_new, frazil), the frazil
+    heat [J m-2] None without FRAZIL."""
+    for name in ("convection", "ddiff", "do_brine_plume"):
         if getattr(p, name):
             raise NotImplementedError(f"diabatic_ale: {name} is not ported")
+    if p.geothermal is not None:
+        geo = geothermal_heating(h, GV, p.geothermal, cp=p.cp) \
+            * G.mask2dT[None]
+        T = T + dt * geo
+        if collect is not None:
+            collect["geo_heat3d"] = geo * h
     kd = set_diffusivity(h, G, GV, p.diff, kd_extra=kd_extra, T=T, S=S,
                          eos=eos, u=u, v=v)
 
@@ -132,7 +160,14 @@ def diabatic_ale(T, S, h, forcing: BuoyancyForcing, dt, G, GV,
     out = tracer_vertdiff(torch.stack(stack), h, kd, dt,
                           sfc_flux=torch.stack(fluxes))
     extra_new = out[2:] if extra_tracers is not None else None
-    return out[0], out[1], kd, extra_new
+    T_new = out[0]
+    frazil = None
+    if p.frazil:
+        T_new, frazil, fz3d = _make_frazil(T_new, out[1], h, GV, p.cp,
+                                           p.tfreeze_form)
+        if collect is not None:
+            collect["frazil3d"] = sdiv(fz3d, dt)
+    return T_new, out[1], kd, extra_new, frazil
 
 
 def diabatic_layered(T, S, h, u, v, forcing: BuoyancyForcing, taux, tauy,

@@ -294,7 +294,10 @@ def test_remap_kernel_wrapper_has_no_fallback_for_other_devices():
         TR.remap_columns_multi(d, h, h, TR.PCM)
 
 
-@pytest.mark.parametrize("scheme", ["PPM_IH4", "PPM_H6", "P3M_H4"])
+# the id "PPM_IH4" keeps its name; PPM_IH4 is ported, so it holds P3M_H4,
+# a scheme still to port
+@pytest.mark.parametrize("scheme", [
+    pytest.param("P3M_H4", id="PPM_IH4"), "PPM_H6", "P3M_H4"])
 def test_unported_schemes_raise(scheme):
     f, h0, h1 = _problem(nf=1)
     with pytest.raises(NotImplementedError, match=scheme):
@@ -353,19 +356,20 @@ def test_ale_regrid_remap_parity(gyre):
         _close(getattr(got, k), getattr(want, k), 1e-5)
 
 
-# the id "ADAPTIVE" keeps its name; the ADAPTIVE mode is ported, so it
-# holds the mode with a remap scheme still to port (PPM_H6), which raises
-# after the ADAPTIVE grid is built
+# the ids "ADAPTIVE", "SIGMA" and "SIGMA_SHELF_ZSTAR" keep their names;
+# those modes are ported, so each holds the mode with a remap scheme still
+# to port (PPM_H6 or P3M_H4), which raises after the grid is built
 @pytest.mark.parametrize("mode,scheme,match", [
-    ("SIGMA", "PPM_H4", "SIGMA"), ("ADAPTIVE", "PPM_H6", "PPM_H6"),
+    ("SIGMA", "P3M_H4", "P3M_H4"), ("ADAPTIVE", "PPM_H6", "PPM_H6"),
     ("HYBGEN", "PPM_H4", "HYBGEN"),
-    ("SIGMA_SHELF_ZSTAR", "PPM_H4", "SIGMA_SHELF_ZSTAR")],
+    ("SIGMA_SHELF_ZSTAR", "PPM_H6", "PPM_H6")],
     ids=["SIGMA", "ADAPTIVE", "HYBGEN", "SIGMA_SHELF_ZSTAR"])
 def test_unported_ale_modes_raise(gyre, mode, scheme, match):
     _, (Gt, GVt, stt, pt, _) = gyre
     with pytest.raises(NotImplementedError, match=match):
         ale_regrid_remap(stt, Gt, GVt,
-                         pt.ale.__class__(mode=mode, scheme=scheme))
+                         pt.ale.__class__(mode=mode, scheme=scheme,
+                                          dz_nominal=pt.ale.dz_nominal))
 
 
 def test_ale_regrid_remap_rho_parity(gyre):

@@ -15,8 +15,10 @@ and the gates themselves.
 * The gates of tests/test_analytic_parity.py and tests/test_pf_pierced.py
   run through the port at their own size and length with their own
   asserts (tests/torch_gates.py).  Those whose CPU run takes longer than
-  ~10 s on one worker are marked slow (CPU seconds in CHANGES.md);
-  chip_smoke.py runs all twelve on the card.
+  ~10 s on one worker are marked slow (CPU seconds in CHANGES.md), and so
+  is nonbouss_basin_config_runs, which the reference marks slow;
+  chip_smoke.py runs them all on the card.  The gates of the ice shelf,
+  tc1, tc2 and the steric contrast of the non-Boussinesq mode run here.
 """
 
 import os
@@ -63,7 +65,13 @@ FAST_GATES = ("external_gwave_phase_speed", "internal_wave_speed",
               "pierced_face_force_continuous_in_sliver",
               "phillips_jet_balanced", "scm_kpp_mixes_under_wind",
               "neverworld_topography_and_stability",
-              "hurricane_wind_structure")
+              "hurricane_wind_structure",
+              "shelf_melt_increases_with_ocean_temperature",
+              "shelf_pressure_and_stress_interception",
+              "shelf_trim_removes_displaced_mass",
+              "isomip_cavity_melts_and_freshens", "tc1_benchmark_layered",
+              "tc2_ale_full_physics", "steric_contrast_nonbouss",
+              "steric_contrast_bouss")
 
 
 def _paramfile(pf_cls, case, tmp):
@@ -131,13 +139,14 @@ def test_tracer_batch_names():
     assert sorted(set(ms.state.tr) - set(names)) == ["_cfc_clock"]
 
 
-# the id "phillips" keeps its name; THICKNESS_CONFIG = phillips is ported,
-# so it holds the next THICKNESS_CONFIG still to port
+# the ids "phillips" and "ts-benchmark" keep their names; every
+# THICKNESS_CONFIG of the reference and TS_CONFIG = benchmark are ported,
+# so they hold a TOPO_CONFIG and a TS_CONFIG still to port
 @pytest.mark.parametrize("text,match", [
     ("USE_REGIONAL_DYES = True\nNUM_DYE_TRACERS = 2\n"
      "DYE_SOURCE_MINLON = 1.0,2.0,3.0\n", "DYE_SOURCE_MINLON"),
-    ("THICKNESS_CONFIG = benchmark\n", "THICKNESS_CONFIG"),
-    ("TS_CONFIG = benchmark\n", "TS_CONFIG"),
+    ("TOPO_CONFIG = spoon\n", "TOPO_CONFIG"),
+    ("TS_CONFIG = from_Z\n", "TS_CONFIG"),
     ("GRID_CONFIG = spherical\nUSE_GENERIC_TRACER = True\n",
      "USE_GENERIC_TRACER"),
 ], ids=["dye-lengths", "phillips", "ts-benchmark", "generic-tracer"])

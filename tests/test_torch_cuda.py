@@ -11,8 +11,9 @@ The kernels perform the plain versions' operations in the same order
 bitwise equal; the PPM flux's assertions allow 1e-6 (f32) and 1e-13
 (f64) of the field's max-abs for a division the card's libraries might
 round apart, those of the Thomas solve, the remap and the PPM edges
-demand equality.  The catalog's post on the small tripolar model is held
-card against CPU in float64.
+demand equality, at the systems PPM_IH4 and JHL's kappa_shear make too.
+The catalog's post on the small tripolar model is held card against CPU
+in float64.
 """
 
 import numpy as np
@@ -108,6 +109,59 @@ def test_tridiag_kernel_forms_are_bitwise(cuda, dtype, nz, form):
     assert torch.equal(x, want)
     # x and nothing else (the allocator rounds a block up to 512 bytes)
     assert extra <= x.numel() * x.element_size() + 512
+
+
+def _captured(module, fn):
+    """The (a, b, c, d) of every tridiag_solve ``fn()`` makes through
+    ``module``'s name for it."""
+    seen, orig = [], module.tridiag_solve
+
+    def record(a, b, c, d):
+        seen.append((a, b, c, d))
+        return orig(a, b, c, d)
+    module.tridiag_solve = record
+    try:
+        fn()
+    finally:
+        module.tridiag_solve = orig
+    return seen
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("system", ["PPM_IH4", "kappa_shear"])
+def test_tridiag_kernel_on_captured_systems(cuda, dtype, system):
+    """The systems of PPM_IH4's compact edge values ((nz+1, ny, nx), a
+    unit diagonal, the boundary rows pinned) and of JHL's kappa and TKE
+    equations ((nz-1, ny, nx), inside kappa_shear's nested loops), made by
+    the modules on tc2's built state under a seeded flow: 0 ulps against
+    the plain version."""
+    from mom6_tpu_torch.ale import remapping
+    from mom6_tpu_torch.eos import get_eos
+    from mom6_tpu_torch.physics.vertical import kappa_shear as ks
+    import os
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    ms = build_model_from_params(ParamFile([os.path.join(
+        repo, "configs", "tc2", "MOM_input")]), dtype=dtype, device=cuda)
+    G, st = ms.grid, ms.state
+    rng = np.random.default_rng(3)
+    t = lambda v: torch.tensor(v, dtype=dtype, device=cuda)
+    st = st.replace(u=t(0.3 * rng.standard_normal(tuple(st.u.shape)))
+                    * G.mask2dCu,
+                    v=t(0.3 * rng.standard_normal(tuple(st.v.shape)))
+                    * G.mask2dCv)
+    if system == "PPM_IH4":
+        seen = _captured(remapping, lambda: remapping.reconstruct(
+            st.T, st.h, "PPM_IH4"))
+        nz = st.h.shape[0] + 1
+        assert all(bool((b == 1.0).all()) for _, b, _, _ in seen)
+    else:
+        seen = _captured(ks, lambda: ks.kappa_shear(
+            st.h, st.u, st.v, st.T, st.S, G, ms.vgrid, get_eos("WRIGHT")))
+        nz = st.h.shape[0] - 1
+    assert seen and all(d.shape[0] == nz for _, _, _, d in seen)
+    for a, b, c, d in seen:
+        assert torch.equal(solvers.tridiag_solve(a, b, c, d),
+                           solvers.tridiag_solve_plain(a, b, c, d))
 
 
 def test_tridiag_kernel_refuses_a_depth_beyond_shared_memory(cuda):

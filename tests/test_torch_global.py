@@ -389,19 +389,20 @@ def test_missing_mosaic_is_generated_in_memory(run_dir, small, tmp_path,
         nx=720, ny_reg=336, ny_cap=64)
 
 
-# the ids "epbl", "grid", "wind" and "ale" keep their names; ePBL, the
-# bulk mixed layer, the spherical grid, every WIND_CONFIG, HYCOM1, neutral
-# diffusion, the internal tides and ADAPTIVE are ported, so they hold the
-# boundary-layer lateral diffusion, the ice shelf, a surface flux and a
-# coordinate still to port
+# the ids "epbl", "jackson", "varmix", "grid", "wind" and "ale" keep their
+# names; ePBL, the bulk mixed layer, the spherical grid, every WIND_CONFIG,
+# HYCOM1, neutral diffusion, the internal tides, ADAPTIVE, JHL, VarMix,
+# the ice shelf and the linear buoyancy forcing are ported, so they hold
+# the boundary-layer lateral diffusion, double diffusion, convection, the
+# shortwave opacity, a topography and a coordinate still to port
 @pytest.mark.parametrize("text,exc,match", [
     ("USE_HORIZONTAL_BOUNDARY_DIFFUSION = True", NotImplementedError,
      "USE_HORIZONTAL_BOUNDARY_DIFFUSION"),
-    ("USE_JACKSON_PARAM = True", NotImplementedError, "USE_JACKSON_PARAM"),
-    ("USE_VARIABLE_MIXING = True", NotImplementedError,
-     "USE_VARIABLE_MIXING"),
-    ("ICE_SHELF = True", NotImplementedError, "ICE_SHELF"),
-    ("BUOY_CONFIG = linear", NotImplementedError, "BUOY_CONFIG"),
+    ("DOUBLE_DIFFUSION = True", NotImplementedError, "DOUBLE_DIFFUSION"),
+    ("USE_CVMIX_CONVECTION = True", NotImplementedError,
+     "USE_CVMIX_CONVECTION"),
+    ("PEN_SW_NBANDS = 3", NotImplementedError, "PEN_SW_NBANDS"),
+    ("TOPO_CONFIG = spoon", NotImplementedError, "TOPO_CONFIG"),
     ("REGRIDDING_COORDINATE_MODE = HYBGEN", NotImplementedError,
      "REGRIDDING_COORDINATE_MODE"),
     ("NO_SUCH_KEY = 1", ValueError, "NO_SUCH_KEY"),

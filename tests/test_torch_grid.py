@@ -110,7 +110,7 @@ def test_double_gyre_construction_parity(nx, ny, nz):
 
 def test_interop_rejects_unported_data():
     ref = ref_double_gyre(nx=12, ny=10, nz=2)
-    st = interop.export(ref[2].replace(frazil=jnp.zeros((10, 12))))
+    st = interop.export(ref[2].replace(sppt_pattern=jnp.zeros((10, 12))))
     with pytest.raises(NotImplementedError):
         interop.load_state(st, device="cpu")
 

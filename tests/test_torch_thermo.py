@@ -348,14 +348,19 @@ def test_diabatic_ale_parity(gyre):
         assert _rel(g, w) <= TOL_OP
 
 
-@pytest.mark.parametrize("kw", [dict(frazil=True), dict(geothermal=1),
+# the ids "kw0" and "kw1" keep their names; frazil and geothermal heating
+# are ported, so they hold the shortwave opacity (under a shortwave flux)
+# and frazil with a convection scheme still to port
+@pytest.mark.parametrize("kw", [dict(opacity=1),
+                                dict(frazil=True, convection=1),
                                 dict(convection=1), dict(ddiff=1),
                                 dict(do_brine_plume=True)])
 def test_diabatic_ale_unported_raise(gyre, kw):
     _, (Gt, GVt, stt, _, _), _ = gyre
     with pytest.raises(NotImplementedError):
-        diabatic_ale(stt.T, stt.S, stt.h, BuoyancyForcing(), 2400.0, Gt,
-                     GVt, DiabaticParams(**kw))
+        diabatic_ale(stt.T, stt.S, stt.h,
+                     BuoyancyForcing(sw_flux=torch.zeros_like(stt.T[0])),
+                     2400.0, Gt, GVt, DiabaticParams(**kw))
 
 
 # --- the slice --------------------------------------------------------------
@@ -441,7 +446,10 @@ def test_interop_rejects_unported_fields(part, field):
             interop.load_state(d, device="cpu")
 
 
-@pytest.mark.parametrize("field,value", [("varmix", 1),
+# the id "varmix-1" keeps its name; VarMix is ported, so it holds the tidal
+# forcing, still to port
+@pytest.mark.parametrize("field,value", [pytest.param("tides", 1,
+                                                      id="varmix-1"),
                                          ("meke", MEKEParams(ku_coeff=0.5)),
                                          ("khtr_bl", 100.0),
                                          ("diabatic_first", True),
@@ -454,9 +462,11 @@ def test_step_mom_unported_options_raise(gyre, field, value):
         step_mom(stt, ft, Gt, GVt, pt.replace(**{field: value}))
 
 
+# the id "diab1" keeps its name; JHL is ported, so it holds a shear scheme
+# the port does not know
 @pytest.mark.parametrize("diab", [dict(boundary_layer_scheme="NO_SUCH"),
                                   dict(use_shear_mixing=True,
-                                       shear_scheme="JHL")])
+                                       shear_scheme="NO_SUCH")])
 def test_step_mom_unported_mixing_raises(gyre, diab):
     _, (Gt, GVt, stt, pt, ft), _ = gyre
     p = pt.replace(diabatic=dataclasses.replace(pt.diabatic, **diab))

@@ -13,8 +13,10 @@ the tidal mixing, the tidal wave drag and the spherical gyre
 (test_neutral_diffusion.py, test_regrid_hybrid.py::test_adaptive_*,
 test_internal_tides.py, test_tidal_mixing.py,
 test_bt_cont.py::test_wave_drag_map_damps_barotropic,
-test_ensemble_spherical.py::test_spherical_gyre_runs), run through the
-PyTorch port.
+test_ensemble_spherical.py::test_spherical_gyre_runs), and those of the
+ice shelf, tc1, tc2 and the non-Boussinesq mode (test_shelf_coupling.py,
+test_tc_ladder.py::TestTC1 and TestTC2, test_nonbouss_mode.py), run
+through the PyTorch port.
 
 Each gate builds its case through the port (the configuration's
 MOM_input, the test's parameter text, or the port's builders), runs it
@@ -45,7 +47,8 @@ from mom6_tpu_torch.core.dynamics_split_rk2 import (DynParams, MechForcing,
 from mom6_tpu_torch.core.mom import Forcing, MOMParams, step_mom
 from mom6_tpu_torch.core.open_boundary import (OBCSegment, apply_obc,
                                                build_obc)
-from mom6_tpu_torch.core.pressure_force import pressure_force_fv
+from mom6_tpu_torch.core.pressure_force import (find_eta_nonbouss,
+                                                 pressure_force_fv, spv_avg)
 from mom6_tpu_torch.core.state import OceanState, init_state_resting
 from mom6_tpu_torch.drivers.config_driver import build_model_from_params
 from mom6_tpu_torch.drivers.experiments import thermo_gyre
@@ -57,6 +60,10 @@ from mom6_tpu_torch.grid.vertical import build_layered_vgrid
 from mom6_tpu_torch.physics.lateral.internal_tides import (
     InternalTidesParams, init_int_tide_energy, step_internal_tides)
 from mom6_tpu_torch.physics.lateral.wave_drag import wave_drag_piston
+from mom6_tpu_torch.physics.shelf_coupling import (ShelfCoupling,
+                                                   apply_shelf_coupling,
+                                                   shelf_melt_fluxes,
+                                                   trim_columns_for_p_surf)
 from mom6_tpu_torch.physics.vertical.bulk_mixed_layer import (BulkMLParams,
                                                               bulkmixedlayer)
 from mom6_tpu_torch.physics.vertical.diabatic import (BuoyancyForcing,
@@ -72,7 +79,7 @@ from mom6_tpu_torch.tracers.neutral_diffusion import (
 from mom6_tpu_torch.tracers.vert_diff import tracer_vertdiff
 from mom6_tpu_torch.physics.waves import WaveParams, make_la_fn
 
-__all__ = ["GATES", "BATCHED", "run_gate"]
+__all__ = ["GATES", "BATCHED", "CARD_ONLY", "run_gate"]
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -1939,6 +1946,263 @@ def spherical_gyre_runs(device):
                 error=umax - 0.5, gate="in (1e-6, 1)")
 
 
+# --- the ice shelf, tc1, tc2 and the non-Boussinesq mode -------------------
+
+def _shelf(device, ny=4, nx=6, draft=500.0, rho_w=1028.0):
+    mass = np.zeros((ny, nx))
+    mass[:, : nx // 2] = rho_w * draft
+    return ShelfCoupling(mass_shelf=_t(mass, device),
+                         frac_shelf_h=_t((mass > 0).astype(float), device))
+
+
+def shelf_melt_increases_with_ocean_temperature(device):
+    """Water 2 degC above the in-situ freezing point melts over 10x faster
+    than water at it, 1-500 m a year, cooling the ocean; no melt in the
+    open (test_shelf_coupling.py::test_melt_increases_with_ocean_
+    temperature)."""
+    sh = _shelf(device)
+    S = _t(np.full((4, 6), 34.5), device)
+    p = sh.melt
+    t_freeze = p.lambda1 * 34.5 + p.lambda2 + p.lambda3 * (9.81 * 1028.0
+                                                           * 500.0)
+    melt_cold, _, _, _ = shelf_melt_fluxes(
+        _t(np.full((4, 6), t_freeze), device), S, sh, 9.81)
+    melt_warm, heat_warm, _, _ = shelf_melt_fluxes(
+        _t(np.full((4, 6), t_freeze + 2.0), device), S, sh, 9.81)
+    m_c = float(melt_cold[0, 0])
+    m_w = float(melt_warm[0, 0])
+    assert m_w > 10.0 * max(m_c, 1e-12), (m_w, m_c)
+    m_per_yr = m_w * 86400.0 * 365.0
+    assert 1.0 < m_per_yr < 500.0, m_per_yr
+    assert float(heat_warm[0, 0]) < 0.0
+    assert float(melt_warm[0, -1]) == 0.0
+    ratio = m_w / max(m_c, 1e-12)
+    return dict(quantity="melt at 2 degC of thermal driving over the melt "
+                "at freezing", measured=ratio, analytic=10.0,
+                error=ratio - 10.0, gate="> 10, the melt in (1, 500) m/yr",
+                melt_m_per_yr=m_per_yr)
+
+
+def shelf_pressure_and_stress_interception(device):
+    """p_surf gains frac g mass; the wind stress is zeroed at faces under
+    the shelf and kept at open ones (test_shelf_coupling.py::
+    test_shelf_pressure_and_stress_interception)."""
+    sh = _shelf(device)
+    ny, nx = 4, 6
+
+    class _St:
+        T = S = u = v = None
+
+    class _GV:
+        g_earth = 9.81
+        rho0 = 1028.0
+
+    one = _t(np.ones((ny, nx)), device)
+    f0 = Forcing(mech=MechForcing(taux=one, tauy=one,
+                                  p_surf=torch.zeros_like(one)))
+    f1, _ = apply_shelf_coupling(_St(), f0, None, _GV(), sh)
+    p_expect = 9.81 * 1028.0 * 500.0
+    np.testing.assert_allclose(float(f1.mech.p_surf[0, 0]), p_expect,
+                               rtol=1e-6)
+    assert float(f1.mech.p_surf[0, -1]) == 0.0
+    assert float(f1.mech.taux[0, 0]) == 0.0
+    assert float(f1.mech.taux[0, 3]) == 1.0
+    got = float(f1.mech.p_surf[0, 0])
+    return dict(quantity="shelf pressure [Pa]", measured=got,
+                analytic=p_expect, error=got - p_expect, gate="rtol 1e-6")
+
+
+def shelf_trim_removes_displaced_mass(device):
+    """The trim takes p_surf/g of mass off each column's top, the
+    straddled layer cut in proportion (test_shelf_coupling.py::
+    test_trim_removes_exactly_the_displaced_mass)."""
+    nz, ny, nx = 8, 3, 4
+    h = _t(np.full((nz, ny, nx), 100.0), device)
+    rho = _t(np.full((nz, ny, nx), 1000.0), device)
+    p_surf = _t(np.broadcast_to(np.array([0.0, 150.0, 350.0, 750.0])
+                                * 1000.0 * 9.81, (ny, nx)), device)
+    h_new, _, _ = trim_columns_for_p_surf(h, None, None, rho, p_surf, 9.81)
+    col = _np(h_new.sum(0))
+    np.testing.assert_allclose(col[0], [800.0, 650.0, 450.0, 50.0],
+                               rtol=1e-6)
+    np.testing.assert_allclose(_np(h_new)[:2, 0, 1], [1e-10, 50.0],
+                               atol=1e-6)
+    err = float(np.abs(col[0] - [800.0, 650.0, 450.0, 50.0]).max())
+    return dict(quantity="column left after the trim [m]",
+                measured=float(col[0, 3]), analytic=50.0, error=err,
+                gate="rtol 1e-6")
+
+
+def isomip_cavity_melts_and_freshens(device):
+    """configs/isomip: the cavity columns at the hydrostatic draft, and 4
+    cycles melt ice: the top layer under the shelf freshens by over 1e-4
+    and cools, the open ocean's changes by under 1e-4
+    (test_shelf_coupling.py::test_isomip_cavity_melts_and_freshens)."""
+    ms = build(device, "isomip")
+    assert ms.params.shelf is not None
+    col = _np(ms.state.h.sum(0))
+    assert col[:, 0].mean() < 300.0, col[:, 0].mean()
+    assert abs(col[:, -1].mean() - 900.0) < 1.0
+    s = _cycles(ms, 4)
+    assert bool(torch.isfinite(s.h).all()) and bool(torch.isfinite(s.T).all())
+    dS = _np(s.S[0] - ms.state.S[0])
+    dT = _np(s.T[0] - ms.state.T[0])
+    dS_shelf, dS_open = float(dS[:, :8].mean()), float(dS[:, 24:].mean())
+    assert dS_shelf < -1e-4, dS_shelf
+    assert abs(dS_open) < 1e-4, dS_open
+    assert float(dT[:, :8].mean()) < 0.0
+    return dict(quantity="top-layer S change under the shelf [ppt]",
+                measured=dS_shelf, analytic=-1e-4, error=dS_shelf + 1e-4,
+                gate="< -1e-4 (open ocean within 1e-4)", dS_open=dS_open)
+
+
+def tc1_benchmark_layered(device):
+    """configs/tc1 (the layered benchmark: BULKML, GM, the ideal age,
+    restoring): 4 cycles finite, the volume kept to 1e-4, the wind spins
+    the basin up, the benchmark topography deeper in the south
+    (test_tc_ladder.py::TestTC1::test_benchmark_layered)."""
+    ms = build(device, "tc1")
+    p = ms.params
+    assert p.diabatic.boundary_layer_scheme == "BULKML"
+    assert p.gm is not None and p.tfc is not None
+    assert ms.forcing.buoy.restore_rate > 0.0
+    s = _cycles(ms, 4)
+    assert bool(torch.isfinite(s.T).all()) and bool(torch.isfinite(s.u).all())
+    v0, v1 = _volume(ms, ms.state), _volume(ms, s)
+    err = abs(v1 - v0) / v0
+    assert err < 1e-4, err
+    umax = float(s.u.abs().max())
+    assert umax > 1e-6, umax
+    bat = _np(ms.grid.bathyT)
+    assert bat[1].mean() > bat[-2].mean()
+    return dict(quantity="relative volume change after 4 cycles",
+                measured=err, analytic=0.0, error=err,
+                gate="< 1e-4, max|u| > 1e-6", max_u=umax)
+
+
+def tc2_ale_full_physics(device):
+    """configs/tc2 (z*, ePBL, MEKE, geothermal heating, neutral
+    diffusion, JHL, frazil, PPM_IH4): 3 cycles finite, the volume kept
+    to 1e-4, the halfpipe deepest mid-channel
+    (test_tc_ladder.py::TestTC2::test_ale_full_physics)."""
+    ms = build(device, "tc2")
+    p = ms.params
+    assert p.ale.mode == "ZSTAR" and p.meke is not None
+    assert p.diabatic.boundary_layer_scheme == "EPBL"
+    assert p.diabatic.geothermal is not None and p.neutral_diffusion
+    s = _cycles(ms, 3)
+    assert bool(torch.isfinite(s.T).all())
+    v0, v1 = _volume(ms, ms.state), _volume(ms, s)
+    err = abs(v1 - v0) / v0
+    assert err < 1e-4, err
+    bat = _np(ms.grid.bathyT)
+    assert bat[4].mean() > bat[0].mean() and bat[4].mean() > bat[-1].mean()
+    return dict(quantity="relative volume change after 3 cycles",
+                measured=err, analytic=0.0, error=err, gate="< 1e-4")
+
+
+def _steric_basin(device, boussinesq):
+    nx, ny, nz, depth = 12, 10, 6, 2000.0
+    G = build_cartesian_grid(nx, ny, 240.0, 200.0, max_depth=depth,
+                             device=device)
+    GV = build_layered_vgrid(nz, boussinesq=boussinesq, device=device)
+    state = init_state_resting(G, GV, [depth / nz] * nz)
+    z = torch.cumsum(state.h, dim=0) - 0.5 * state.h
+    T = 14.0 - 8.0 * z / depth
+    state = state.replace(T=T, S=torch.full_like(T, 35.0))
+    dt = 1800.0
+    nstep, _ = set_dtbt(G, GV, depth, dt)
+    params = MOMParams(
+        dyn=DynParams(dt=dt, bt=BTParams(nstep=nstep, nfilter=2), kv=1e-4),
+        thermo_enabled=True, eos_name="WRIGHT",
+        diabatic=DiabaticParams(boundary_layer_scheme="NONE", cp=3992.0),
+        ale=ALEParams(mode="ZSTAR", dz_nominal=tuple([depth / nz] * nz)),
+        n_dyn_per_thermo=1)
+    return G, GV, state, params
+
+
+def _steric_contrast(device, boussinesq):
+    """24 cycles of uniform surface warming (500 W m-2) of a closed
+    resting basin: the column measure (mass without, volume with the
+    Boussinesq approximation) kept to 2e-6, the heat taken in within 2%;
+    without it the geometric SSH rises by the EOS's specific-volume
+    integral within 10%, with it by under 2e-4 m
+    (test_nonbouss_mode.py::test_steric_contrast)."""
+    G, GV, state, params = _steric_basin(device, boussinesq)
+    eos = get_eos(params.eos_name)
+    q = 500.0
+    forcing = Forcing(buoy=BuoyancyForcing(
+        heat_flux=torch.full_like(G.mask2dT, q)))
+    area = _np(G.areaT * G.mask2dT)
+
+    def totals(s):
+        h64 = _np(s.h)
+        col = (h64 * area[None]).sum()
+        if boussinesq:
+            eta_g = _np(s.h.sum(0) - G.bathyT)
+        else:
+            eta_g = _np(find_eta_nonbouss(s.h, s.T, s.S, G, GV, eos))
+        ssh = (eta_g * area).sum() / area.sum()
+        return col, ssh, (_np(s.T) * h64 * area[None]).sum()
+
+    col0, ssh0, heat0 = totals(state)
+    n_cyc = 24
+    s = state
+    with torch.inference_mode():
+        for _ in range(n_cyc):
+            s = step_mom(s, forcing, G, GV, params)
+    col1, ssh1, heat1 = totals(s)
+    assert abs(col1 - col0) / col0 < 2e-6, (col0, col1)
+    heat_in = q * area.sum() * n_cyc * params.dyn.dt
+    heat_gain = GV.rho0 * 3992.0 * (heat1 - heat0)
+    assert abs(heat_gain / heat_in - 1.0) <= 0.02, (heat_gain, heat_in)
+    got = ssh1 - ssh0
+    if boussinesq:
+        assert abs(got) < 2e-4, got
+        return dict(quantity="SSH rise [m]", measured=got, analytic=0.0,
+                    error=got, gate="|.| < 2e-4")
+    with torch.inference_mode():
+        dz0 = GV.rho0 * _np(state.h * spv_avg(state.h, state.T, state.S,
+                                              GV, eos))
+        dz1 = GV.rho0 * _np(state.h * spv_avg(state.h, s.T, s.S, GV, eos))
+    want = ((dz1 - dz0).sum(axis=0) * area).sum() / area.sum()
+    assert got > 1e-4, got
+    assert abs(got - want) <= 0.1 * abs(want), (got, want)
+    return dict(quantity="steric SSH rise [m]", measured=got, analytic=want,
+                error=got - want, gate="rel 0.1, > 1e-4")
+
+
+def steric_contrast_nonbouss(device):
+    return _steric_contrast(device, False)
+
+
+def steric_contrast_bouss(device):
+    return _steric_contrast(device, True)
+
+
+def nonbouss_basin_config_runs(device):
+    """configs/nonbouss_basin: 12 cycles finite with h >= 0, the geometric
+    SSH finite and apart from the column-mass measure by 1e-3 to 50 m
+    (test_nonbouss_mode.py::test_nonbouss_basin_config_runs)."""
+    ms = build(device, "nonbouss_basin")
+    assert not ms.vgrid.boussinesq
+    s = _cycles(ms, 12)
+    for name in ("h", "u", "v", "T", "S"):
+        assert bool(torch.isfinite(getattr(s, name)).all()), name
+    assert float(s.h.min()) >= 0.0
+    eos = get_eos(ms.params.eos_name)
+    with torch.inference_mode():
+        eta_g = _np(find_eta_nonbouss(s.h, s.T, s.S, ms.grid, ms.vgrid,
+                                      eos))
+    wet = _np(ms.grid.mask2dT) > 0.5
+    assert np.isfinite(eta_g[wet]).all()
+    d = np.abs(eta_g - _np(s.h.sum(0) - ms.grid.bathyT))[wet]
+    assert 1e-3 < d.max() < 50.0, d.max()
+    return dict(quantity="largest |steric - mass SSH| [m]",
+                measured=float(d.max()), analytic=0.0,
+                error=float(d.max()), gate="in (1e-3, 50)")
+
+
 # name -> gate, in the order of the reference's test files
 GATES = {
     "external_gwave_phase_speed": external_gwave,
@@ -2018,7 +2282,24 @@ GATES = {
     "tidal_set_diffusivity_integration": tidal_set_diffusivity_integration,
     "wave_drag_map_damps_barotropic": wave_drag_map_damps_barotropic,
     "spherical_gyre_runs": spherical_gyre_runs,
+    # test_shelf_coupling.py, test_tc_ladder.py::TestTC1 and TestTC2 and
+    # test_nonbouss_mode.py on isomip's, tc1's, tc2's and nonbouss_basin's
+    # modules
+    "shelf_melt_increases_with_ocean_temperature":
+        shelf_melt_increases_with_ocean_temperature,
+    "shelf_pressure_and_stress_interception":
+        shelf_pressure_and_stress_interception,
+    "shelf_trim_removes_displaced_mass": shelf_trim_removes_displaced_mass,
+    "isomip_cavity_melts_and_freshens": isomip_cavity_melts_and_freshens,
+    "tc1_benchmark_layered": tc1_benchmark_layered,
+    "tc2_ale_full_physics": tc2_ale_full_physics,
+    "steric_contrast_nonbouss": steric_contrast_nonbouss,
+    "steric_contrast_bouss": steric_contrast_bouss,
+    "nonbouss_basin_config_runs": nonbouss_basin_config_runs,
 }
+
+# the gate the reference marks slow: the card runs it, the CPU tests not
+CARD_ONLY = ("nonbouss_basin_config_runs",)
 
 
 # the gates of spherical_gyre's and tides_channel's modules: each a second
