@@ -7,6 +7,7 @@
     python3 chip_smoke.py --options
     python3 chip_smoke.py --lateral
     python3 chip_smoke.py --stoch
+    python3 chip_smoke.py --hybgen
     python3 chip_smoke.py --gate NAME
 
 With ``--kernels`` only phases 1-3 run and the kernels' times are printed
@@ -19,13 +20,15 @@ and 2, the Thomas and remap checks at the coupled cycle's shapes and
 phase 16 only.  ``--options`` runs phases 1 and 2, the split Thomas
 check and phase 17 only.  ``--lateral`` runs phases 1 and 2, the flux checks with
 a per-layer face of phase 3 and phase 18 only.  ``--stoch`` runs phases
-1 and 2 and phase 19 only.  ``--gate NAME``
+1 and 2 and phase 19 only.  ``--hybgen`` runs phases 1 and 2 and phases
+20 and 21 only.  ``--gate NAME``
 runs one physics gate of tests/torch_gates.py on the card and prints its
 record and launch counts as one JSON line (phase 10 starts these).
 
 Phases (each prints its own lines; any failure raises and exits non-zero),
 run in the order 1-4, 6-8, the first half of 12, 13, 14, 15, 16, 17, 18,
-the first part of 19, then 5, 9, 11, the rest of 12 and of 19 while the
+the first part of 19, 20, 21, then 5, 9, 11, the rest of 12 and of 19
+while the
 gates of phase 10 run in processes of their own (nothing timed runs
 beside the gates):
 
@@ -291,7 +294,32 @@ beside the gates):
    K1 and O1 and the harmonic SAL in float64 through the CLI, card
    against CPU (ocean.stats to 1e-12 and 1e-9, the restart to 1e-10),
    and 2 + 2 cycles on the card equal to 4 straight ones to the bit;
-20. a JSON line of the kernels (each with its row at every shape it was
+20. ``[hybgen]``: configs/global_half_deg with
+   tests/torch_gates.py::HYBGEN_OVERRIDE (HYBGEN with 32 potential
+   density targets and HYCOM's minimum z profile, PPM_H6, TS_CONFIG =
+   from_Z from a climatology on World Ocean Atlas 2018's layout, 360x180
+   and 102 levels, written first from a seed with the model's land, each
+   cell as deep as its deepest model point) through the CLI for
+   HYBGEN_CYCLES cycles in float32 at 720x400x32 (max |u| then and a
+   cycle later under HYBGEN_MAX_U):
+   mass drift under 1e-6, salt drift under 1e-5, launches exactly
+   ``fold_cycle(6)`` a cycle plus the build's two z_init remaps; the
+   from_Z build timed in this process with the fill's relaxation passes;
+   from the CLI's restart a timed and a profiled cycle (the idle share);
+   the remaps of z_init (102 levels to 32 layers), of HYBGEN's T/S and u
+   after PPM_H6 and of T/S after P3M_H4 (the quartic instance, one cycle
+   with its launches held and its heat and salt held to the PPM_H6
+   cycle's) captured from the path, each held bitwise in
+   float32 and float64 and timed against the plain version and the
+   bound;
+21. ``[ice_solo]``: ``python -m mom6_tpu_torch.drivers.ice_solo`` on the
+   MISMIP+ ice domain's extent and spacing (80 x 640 cells of 1 km) for
+   3 daily steps: ice.stats finite, the volume and area drift; a timed
+   and a profiled step (kernels a step, the idle share); in float64 on
+   that grid, the card against the CPU: one viscosity, one operator
+   application and a solve cut to 1 x 3 iterations to 1e-10, the whole
+   8 x 60 solve beside the CPU's one-ulp sensitivity, its CG residuals;
+22. a JSON line of the kernels (each with its row at every shape it was
    checked at), then the result line.
 
 Long output (the ptxas report, the profiler tables) goes to
@@ -1254,6 +1282,19 @@ def _hycom_remap_inputs(shape, dev):
     return torch.stack([T, S][:nf]), h0, h1
 
 
+def _remap_work(nf, npoly, nz0, nz1, cols):
+    """(bytes, float32 operations) of a remap launch: each input read once
+    and the output written once; the operations as an O(nz0 + nz1) merge
+    over the monotone interfaces would do them: xi at each target
+    interface (5, shared by the fields), per field each source cell's
+    whole integral once (npoly + 1) and one partial integral per target
+    interface (2(npoly-1) + 3), then 3 per output cell."""
+    nbytes = 4 * cols * (nf * npoly * nz0 + nz0 + nz1 + 2 * nf + nf * nz1)
+    nflops = cols * (5 * (nz1 + 1) + nf * (
+        (npoly + 1) * nz0 + (2 * (npoly - 1) + 3) * (nz1 + 1) + 3 * nz1))
+    return nbytes, nflops
+
+
 def _check_remap(shape, dev, results, scheme=remap.PPM_H4, hycom=False,
                  **form):
     """The wrapper remap_columns_multi (reconstruction, then one launch)
@@ -1291,15 +1332,7 @@ def _check_remap(shape, dev, results, scheme=remap.PPM_H4, hycom=False,
                                                         hi), reps=5)
     w_ms = median_ms(lambda: wrapper(f, h0, h1, scheme), reps=5)
     wp_ms = median_ms(plain_whole, reps=5)
-    # each input read once and the output written once; the operations the
-    # function needs, as an O(nz0 + nz1) merge over the monotone interfaces
-    # would do them: xi at each target interface (5, shared by the fields),
-    # per field each source cell's whole integral once (npoly + 1) and one
-    # partial integral per target interface (2(npoly-1) + 3), then 3 per
-    # output cell
-    nbytes = 4 * cols * (nf * npoly * nz0 + nz0 + nz1 + 2 * nf + nf * nz1)
-    nflops = cols * (5 * (nz1 + 1) + nf * (
-        (npoly + 1) * nz0 + (2 * (npoly - 1) + 3) * (nz1 + 1) + 3 * nz1))
+    nbytes, nflops = _remap_work(nf, npoly, nz0, nz1, cols)
     row = _kernel_row(float((out_k - out_p).abs().max()), ms, d_ms, pms,
                       nbytes, nflops, shape)
     what = (f"nf={nf} ({nz0}, {ny}, {nx})"
@@ -1327,6 +1360,59 @@ def _check_remap(shape, dev, results, scheme=remap.PPM_H4, hycom=False,
         results["remap_npoly5"] = row
     elif npoly == 3 and shape == REMAP_SHAPES[0] and not form:
         results["remap"] = row
+
+
+def _check_remap_site(tag, label, args):
+    """A remap launch captured from a path (``args`` = coef, h0, h1, lo,
+    hi as the wrapper gave them to the kernel): the kernel against the
+    plain version in float32 (as captured) and float64, to the bit; the
+    launch's time from an idle device, its device time, the plain
+    version's and the card's bound for it, kept as a row of the kernel
+    in the JSON line."""
+    coef, h0, h1, lo, hi = args
+    nf, npoly, nz0 = coef.shape[:3]
+    nz1 = h1.shape[0]
+    for dtype in (torch.float32, torch.float64):
+        r = [t.to(dtype) for t in args]
+        got = remap._remap_launch(*r)
+        want = remap.remap_integrals_plain(*r)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"[{tag}] captured remap {label} {dtype}: "
+                                 f"not bitwise ({max_ulps(got, want)} ulps)")
+    ms = median_ms(lambda: remap._remap_launch(*args))
+    d_ms = device_ms(lambda: remap._remap_launch(*args), "remap_kernel")
+    pms = median_ms(lambda: remap.remap_integrals_plain(*args), reps=5)
+    nbytes, nflops = _remap_work(nf, npoly, nz0, nz1, h0[0].numel())
+    shape = (nf, nz0) + tuple(h0.shape[1:])
+    row = _kernel_row(0.0, ms, d_ms, pms, nbytes, nflops, shape)
+    what = (f"{label}: nf={nf} ({nz0}, {h0.shape[1]}, {h0.shape[2]}) to "
+            f"{nz1} layers npoly {npoly}, captured from [{tag}]")
+    log(f"[kernel] remap {what}: kernel against plain 0 ulps in float32 "
+        f"and float64; launch {ms:.4f} ms ({d_ms:.4f} ms on the device), "
+        f"plain {pms:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}: {nbytes / 1e6:.1f} MB, {nflops / 1e9:.3f} "
+        f"GFLOP)")
+    TIMES[f"remap {what}"] = ms
+    SHAPE_ROWS.setdefault("remap_npoly5" if npoly == 5 else "remap",
+                          []).append(dict(row, form=what))
+
+
+def _captured_remaps(run):
+    """The inputs of every remap launch ``run()`` makes, in order (the
+    launches go on, and are counted, as usual)."""
+    seen = []
+    orig = remap._remap_launch
+
+    def record(*args):
+        seen.append([t.clone() for t in args])
+        return orig(*args)
+    remap._remap_launch = record
+    try:
+        run()
+    finally:
+        remap._remap_launch = orig
+    return seen
 
 
 def _noisy_thickness(h, seed):
@@ -3047,23 +3133,35 @@ def _options_small(dev):
                        ("h", "T", "S", "u", "v"))
 
 
-def _cli_phase(dev, tag, override, days, on, options, card):
+def _cli_phase(dev, tag, override, days, on, options, card, prepare=None,
+               build_launches=None, in_build=None):
     """configs/global_half_deg with ``override`` through the CLI for
     ``days``, float32 at 720x400x32: ocean.stats finite, mass drift under
     1e-6 and salt drift under 1e-5 of the totals, the launches exactly
     ``fold_cycle(6)`` a cycle, the wall ms a cycle (``options(p)`` names
     the options on the line, ``on(p, G)`` says that each is on); then
     the model built in this process from the same files and the CLI's
-    restart restored.  Returns (ModelSetup, the restored state, its time
-    [s], the build's seconds, the launches a cycle, the CLI's launches)."""
+    restart restored.  ``prepare(d)`` writes what the run directory
+    needs before the CLI starts; ``build_launches`` are the launches the
+    build makes, which the CLI counts with the cycles'; ``in_build(run)``
+    wraps the build in this process.  Returns (ModelSetup, the restored
+    state, its time [s], the build's seconds, the launches a cycle, the
+    CLI's launches)."""
     from mom6_tpu_torch.framework.restart import RestartRegistry
     d = _solo_dir("global_half_deg", tag, override)
+    if prepare is not None:
+        prepare(d)
     secs = _run_solo([(d, ["--days", repr(days)])], 1)[d]
+    built = []
+
+    def build():
+        built.append(build_model_from_params(ParamFile(
+            [os.path.join(d, "MOM_input"), os.path.join(d, "MOM_override")]),
+            device=dev))
     t0 = time.time()
-    ms = build_model_from_params(ParamFile(
-        [os.path.join(d, "MOM_input"), os.path.join(d, "MOM_override")]),
-        device=dev)
+    (in_build or (lambda run: run()))(build)
     t_build = time.time() - t0
+    ms = built[0]
     p = ms.params
     if not on(p, ms.grid):
         raise AssertionError(f"[{tag}] not every option is on")
@@ -3087,7 +3185,9 @@ def _cli_phase(dev, tag, override, days, on, options, card):
         raise AssertionError(f"[{tag}] ocean.stats not finite: {s}")
     if not (mass < 1e-6 and salt < 1e-5):
         raise AssertionError(f"[{tag}] drift: mass {mass}, salt {salt}")
-    _check_counts(launches, per, n, tag)
+    extra = build_launches or {}
+    _check_counts({k: c - extra.get(k, 0) for k, c in launches.items()},
+                  per, n, tag)
     reg = RestartRegistry()
     reg.register_state(ms.state)
     st, t_s, _ = reg.restore_state(os.path.join(d, "MOM.res.nc"), ms.state)
@@ -3103,9 +3203,18 @@ def _timed_cycle(cycle, st):
     return 1e3 * (time.time() - t1)
 
 
-def _variant_cycle(tag, cycle, st, G, label, per, fields, card):
+def _contents(x, area):
+    """The heat (T h) and salt (S h) contents of ``x``, float64."""
+    h = x.h.double() * area
+    return (float((x.T.double() * h).sum()), float((x.S.double() * h).sum()))
+
+
+def _variant_cycle(tag, cycle, st, G, label, per, fields, card, base=None):
     """One cycle ``cycle(st)`` of a variant: its wall ms, its launches
-    held to ``per``, its ``fields`` finite, its volume kept to 1e-6."""
+    held to ``per``, its ``fields`` finite, its volume kept to 1e-6; with
+    ``base``, the base configuration's state one cycle from ``st``, its
+    heat and salt contents held to the base's to 1e-6 of the totals (the
+    same forcing acted on both)."""
     wet = G.mask2dT > 0.5
     area = (G.areaT * G.mask2dT).double()
     v0 = float((st.h.double() * area).sum())
@@ -3120,13 +3229,23 @@ def _variant_cycle(tag, cycle, st, G, label, per, fields, card):
                                          .all())]
     drift = abs(float((out.h.double() * area).sum()) - v0) / v0
     t_w = out.T[wet.expand_as(out.T)]
+    against = [0.0, 0.0]
+    if base is not None:
+        c0 = _contents(st, area)
+        against = [abs(a - b) / abs(c) for a, b, c in
+                   zip(_contents(out, area), _contents(base, area), c0)]
     log(f"[{tag}] one cycle with {label}: {wall_k:.2f} wall ms, launches "
         f"{got}, mass drift {drift:.3e}, wet T in [{float(t_w.min()):.4f}, "
         f"{float(t_w.max()):.4f}] degC, max |u| "
-        f"{float(out.u.abs().max()):.4f} m/s; {card}")
-    if got != per or bad or not drift < 1e-6:
+        f"{float(out.u.abs().max()):.4f} m/s"
+        + ("" if base is None else
+           f", heat and salt contents against the base cycle's "
+           f"{against[0]:.3e} and {against[1]:.3e} of the totals (tol "
+           f"1e-6)") + f"; {card}")
+    if got != per or bad or not drift < 1e-6 or not max(against) < 1e-6:
         raise AssertionError(f"[{tag}] {label}: launches {got} (expected "
-                             f"{per}), non-finite {bad}, drift {drift}")
+                             f"{per}), non-finite {bad}, drift {drift}, "
+                             f"contents against the base {against}")
 
 
 def phase_options(dev, card):
@@ -3371,24 +3490,6 @@ def _stoch_on(p, G):
             and p.sppt is not None and p.skeb_scale > 0.0 and G.fold_north)
 
 
-def _captured_remap(run):
-    """The inputs (coef, h0, h1, lo, hi) of the first remap launch that
-    ``run()`` makes (the launches go on, and are counted, as usual)."""
-    seen = []
-    orig = remap._remap_launch
-
-    def record(*args):
-        if not seen:
-            seen.extend(t.clone() for t in args)
-        return orig(*args)
-    remap._remap_launch = record
-    try:
-        run()
-    finally:
-        remap._remap_launch = orig
-    return seen
-
-
 def _check_stoch_captured(solve, coef):
     """The captured diabatic Thomas solve and remap, float32 as captured
     and float64, kernel against plain bitwise; returns their d's and
@@ -3441,8 +3542,8 @@ def phase_stoch(dev, card):
     from mom6_tpu_torch.tracers import vert_diff
     out, solves, coef = [], [], []
     fluxes = _captured_porous_flux(lambda: solves.extend(_captured_solves(
-        vert_diff, lambda: coef.extend(_captured_remap(
-            lambda: out.append(cycle(st)))))), face3d=False)
+        vert_diff, lambda: coef.extend(_captured_remaps(
+            lambda: out.append(cycle(st)))[0]))), face3d=False)
     flux_shapes = _check_captured_porous_flux(fluxes, "stoch", face3d=False)
     solve_shape, coef_shape = _check_stoch_captured(solves[0], coef)
     ms_cycle = _timed_cycle(cycle, st)
@@ -3608,6 +3709,255 @@ def phase_tides(dev):
 # ---------------------------------------------------------------------------
 # phase 12: the port's command line, python -m mom6_tpu_torch.drivers.solo
 
+HYBGEN_CYCLES = 3
+# the climatology's seed
+HYBGEN_SEED = 11
+# [m/s] the bound on max |u| after the CLI's cycles from the from_Z build
+# at rest and after the next cycle (2.2 after three cycles with this
+# climatology, 6.4 in the first with its land at the nearest model
+# point's depth: tools/torch_hybgen_spinup.py)
+HYBGEN_MAX_U = 4.0
+
+
+def _hybgen_on(p, G):
+    return (p.ale.mode == "HYBGEN" and p.ale.scheme == "PPM_H6"
+            and len(p.ale.rho_targets) == 32 and G.fold_north)
+
+
+def phase_hybgen(dev, ms_global, card):
+    """``[hybgen]`` lines: configs/global_half_deg with
+    torch_gates.HYBGEN_OVERRIDE (HYBGEN with 32 targets and HYCOM's
+    minimum z profile, PPM_H6, TS_CONFIG = from_Z) through the CLI for
+    HYBGEN_CYCLES cycles, from a climatology that the phase writes first
+    (torch_gates.write_climatology: World Ocean Atlas 2018's 1-degree
+    layout, 360x180 and 102 levels, values from HYBGEN_SEED, its land
+    from the model's topography, each cell as deep as its deepest model
+    T point; tools/torch_hybgen_spinup.py shows why): mass drift under
+    1e-6, salt drift under 1e-5, launches exactly ``fold_cycle(6)`` a
+    cycle plus the build's two remaps (z_init's T and S).  Then the
+    build in this process (its seconds and the fill's relaxation passes),
+    whose z_init remap of T is captured; from the CLI's restart a cycle
+    whose T/S (PPM_H6) and u remaps are captured (max |u| after the CLI's
+    cycles and after it under HYBGEN_MAX_U), a timed and a profiled cycle
+    (the device's idle share), and a cycle with P3M_H4 (the quartic
+    instance; its heat and salt held to the PPM_H6 cycle's) whose T/S
+    remap is captured: each captured launch held bitwise in float32 and
+    float64 and timed (:func:`_check_remap_site`).  Returns the launches
+    of the CLI's cycles."""
+    import torch_gates
+    from mom6_tpu_torch.grid import horiz_regrid
+    clim = {}
+
+    def prepare(d):
+        t0 = time.time()
+        clim["missing"] = torch_gates.write_climatology(
+            os.path.join(d, "clim_z.nc"), ms_global.grid, HYBGEN_SEED,
+            land="deepest")
+        clim["seconds"] = time.time() - t0
+
+    def options(p):
+        a = p.ale
+        return (f"REGRIDDING_COORDINATE_MODE HYBGEN ({len(a.rho_targets)} "
+                f"targets {a.rho_targets[0]:.4f}-{a.rho_targets[-1]:.4f} "
+                f"kg m-3, relaxation {a.hybgen_qrlx}, minimum z profile "
+                f"{a.dz_nominal[0]:.1f}-{max(a.dz_nominal):.1f} m), "
+                f"REMAPPING_SCHEME {a.scheme}, TS_CONFIG from_Z "
+                f"(clim_z.nc 360x180x102, {100 * clim['missing']:.1f}% "
+                f"missing, its land at the deepest model depth of each "
+                f"cell, written in {clim['seconds']:.1f} s)")
+    zinit = []
+
+    def in_build(build):
+        horiz_regrid.fill_missing.passes = 0
+        zinit.extend(_captured_remaps(build))
+    ms, st, t_s, t_build, per, launches = _cli_phase(
+        dev, "hybgen", torch_gates.HYBGEN_OVERRIDE,
+        HYBGEN_CYCLES * 7200.0 / 86400.0, _hybgen_on, options, card,
+        prepare=prepare, build_launches={"remap": 2}, in_build=in_build)
+    passes = horiz_regrid.fill_missing.passes
+    G, GV, p, f = ms.grid, ms.vgrid, ms.params, ms.forcing
+    if len(zinit) != 2:
+        raise AssertionError(f"[hybgen] the build launched {len(zinit)} "
+                             "remaps (z_init's T and S expected)")
+    wet = G.mask2dT > 0.5
+    T0 = ms.state.T[wet.expand_as(ms.state.T)]
+    log(f"[hybgen] the from_Z build in this process: {t_build:.1f} s (the "
+        f"climatology read, interpolated and filled on the host for T and "
+        f"S, 102 levels each, {passes} relaxation passes; the remap from "
+        f"102 levels to 32 layers on the card, 2 launches); wet T in "
+        f"[{float(T0.min()):.4f}, {float(T0.max()):.4f}] degC; {card}")
+
+    def cycle(x, **kw):
+        with torch.inference_mode():
+            return step_mom(x, f, G, GV, p.replace(**kw))
+
+    out = []
+    seen = _captured_remaps(lambda: out.append(cycle(st)))
+    if len(seen) != 3:
+        raise AssertionError(f"[hybgen] a cycle launched {len(seen)} remaps")
+    ms_cycle = _timed_cycle(cycle, st)
+    dev_ms, n_kern, blocked = _profile(cycle, st, "hybgen")
+    s1 = out[0]
+    hw = s1.h[wet.expand_as(s1.h)]
+    log(f"[hybgen] from the CLI's restart (t = {t_s:.0f} s): one cycle "
+        f"{ms_cycle:.2f} wall ms (host clock, synchronised); profiler, one "
+        f"cycle: {n_kern} kernels, {dev_ms:.3f} ms of device time, device "
+        f"idle {100.0 * (1.0 - dev_ms / ms_cycle):.1f}%, host blocked on a "
+        f"full command buffer {blocked:.3f} ms; launches a cycle exactly "
+        f"fold_cycle(6) (HYBGEN's regrid and unmixing add none: eager "
+        f"PyTorch); layers under 1 m: {100.0 * float((hw < 1.0).float().mean()):.1f}% "
+        f"of the wet cells; max |u| {float(s1.u.abs().max()):.4f} m/s; "
+        f"{card}")
+    for k in ("h", "u", "v", "T", "S"):
+        if not bool(torch.isfinite(getattr(s1, k)).all()):
+            raise AssertionError(f"[hybgen] {k} not finite")
+    speed = max(float(x.u.abs().max()) for x in (st, s1))
+    if not speed < HYBGEN_MAX_U:
+        raise AssertionError(f"[hybgen] max |u| {speed} m/s after the "
+                             f"CLI's cycles or the next")
+    _check_remap_site("hybgen", "z_init's PLM remap of T", zinit[0])
+    _check_remap_site("hybgen", "HYBGEN's T/S after PPM_H6", seen[0])
+    _check_remap_site("hybgen", "HYBGEN's u after PPM_H6", seen[1])
+    per_p3m = dict(per, remap_npoly5=per["remap"])
+    _variant_cycle("hybgen", lambda x: cycle(x, ale=dataclasses.replace(
+        p.ale, scheme="P3M_H4")), st, G, "P3M_H4", per_p3m,
+        ("h", "u", "v", "T", "S"), card, base=s1)
+    quartic = _captured_remaps(lambda: cycle(st, ale=dataclasses.replace(
+        p.ale, scheme="P3M_H4")))
+    _check_remap_site("hybgen", "HYBGEN's T/S after P3M_H4", quartic[0])
+    return launches
+
+
+ICE_SOLO_TEXT = ("NIGLOBAL = 80\nNJGLOBAL = 640\nLENLON = 80.0\n"
+                 "LENLAT = 640.0\n")
+ICE_SOLO_DAYS = 3
+# the card-against-CPU solve that does not depend on convergence
+SSA_CUT = dict(n_picard=1, n_cg=3)
+
+
+def phase_ice_solo(dev, card):
+    """``[ice_solo]`` lines: the ice-only driver as users run it, ``python
+    -m mom6_tpu_torch.drivers.ice_solo DIR --days ICE_SOLO_DAYS``, on the
+    extent and spacing of the MISMIP+ ice domain (640 km by 80 km at 1 km,
+    Asay-Davis et al. 2016; the driver's wedge thins in y, so NIGLOBAL =
+    80 and NJGLOBAL = 640) with the driver's defaults otherwise (daily
+    steps, 8 Picard iterations of 60 CG iterations: 480 applications of
+    the SSA operator a step): ice.stats finite, the volume and area
+    drift; then in this process a timed step and a profiled one (kernels
+    a step, the device's idle share); in float64 on that grid and wedge,
+    the card against the CPU: one viscosity and one operator application
+    at the CPU's solved velocities and the solve cut to SSA_CUT (1e-10 of
+    the max-abs), and the driver's whole solve beside the CPU's own
+    difference for a thickness one ulp larger (10 times that), with each
+    Picard iteration's CG residual."""
+    from mom6_tpu_torch.drivers import ice_solo
+    from mom6_tpu_torch.physics.ice_shelf_dynamics import (_apply_ssa,
+                                                           _glen_visc,
+                                                           ssa_solve)
+    d = os.path.join(SOLO_OUT, "ice_solo")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    with open(os.path.join(d, "MOM_input"), "w") as fh:
+        fh.write(ICE_SOLO_TEXT)
+    run = _start_solo(d, ["--days", str(ICE_SOLO_DAYS)], driver="ice_solo")
+    secs = _end_solo(d, run)
+    rows = []
+    with open(os.path.join(d, "ice.stats")) as fh:
+        for ln in fh:
+            m = re.search(r"Vol (\S+)\s+Area (\S+)\s+max\|u\|\s+(\S+)", ln)
+            if m:
+                rows.append([float(x) for x in m.groups()])
+    if not rows or not all(math.isfinite(x) for r in rows for x in r):
+        raise AssertionError(f"[ice_solo] ice.stats: {rows}")
+    pf = ParamFile([os.path.join(d, "MOM_input")])
+    setup = ice_solo.build(pf, dev)
+    G = setup.grid
+    area = (G.areaT.double() * (setup.h_ice > 1.0)).sum()
+    vol0 = float((setup.h_ice.double() * G.areaT.double()).sum())
+    vol_drift = rows[-1][0] / vol0 - 1.0
+    area_drift = rows[-1][1] / float(area) - 1.0
+    u = torch.zeros_like(setup.h_ice)
+
+    def step(x):
+        with torch.inference_mode():
+            return ice_solo.step(setup, x, u, u)
+    step(setup.h_ice)
+    ms_step = _timed_cycle(step, setup.h_ice)
+    dev_ms, n_kern, blocked = _profile(step, setup.h_ice, "ice_solo")
+    log(f"[ice_solo] python -m mom6_tpu_torch.drivers.ice_solo (80 x 640 "
+        f"cells of 1 km, {ICE_SOLO_DAYS} daily steps): process {secs:.1f} "
+        f"s; ice.stats: volume {rows[-1][0]:.6e} m3 (drift {vol_drift:+.3e} "
+        f"of the wedge's), area {rows[-1][1]:.6e} m2 (drift "
+        f"{area_drift:+.3e}), max |u| {rows[-1][2]:.2f} m/yr; one step in "
+        f"this process {ms_step:.2f} wall ms (host clock, synchronised); "
+        f"profiler, one step: {n_kern} kernels ({n_kern / 480.0:.1f} an "
+        f"operator application), {dev_ms:.3f} ms of device time, device "
+        f"idle {100.0 * (1.0 - dev_ms / ms_step):.1f}%, host blocked on a "
+        f"full command buffer {blocked:.3f} ms; {card}")
+    # float64, the card against the CPU: one viscosity and one operator
+    # application at the CPU's solved velocities, and the solve cut to one
+    # Picard iteration of SSA_CUT_CG CG iterations (none of these depends
+    # on convergence: 1e-10); beside them the driver's whole solve and the
+    # CPU's own answer for a thickness one ulp larger (how far round-off
+    # moves the 8 x 60 iterations here)
+    s64 = {str(w): ice_solo.build(pf, w) for w in (dev, "cpu")}
+    out, res = {}, {}
+    for tag, where, pp, h_of in (
+            ("solve", "cpu", None, lambda h: h),
+            ("ulp", "cpu", None, lambda h: torch.nextafter(h, torch.tensor(
+                math.inf, dtype=torch.float64))),
+            ("solve", dev, None, lambda h: h),
+            ("cut", "cpu", SSA_CUT, lambda h: h),
+            ("cut", dev, SSA_CUT, lambda h: h)):
+        s = s64[str(where)]
+        Gd = s.grid.to(dtype=torch.float64)
+        params = s.params if pp is None else dataclasses.replace(
+            s.params, **pp)
+        with torch.inference_mode():
+            out[tag, str(where)] = ssa_solve(
+                h_of(s.h_ice.double()), Gd, params,
+                mask_shelf=s.mask_shelf.double())
+        res[tag, str(where)] = ssa_solve.residuals.cpu().tolist()
+    ref = out["solve", "cpu"]
+    speed = max(float(a.abs().max()) for a in ref)
+
+    def diff(x, y):
+        return max(float((a.cpu() - b.cpu()).abs().max())
+                   for a, b in zip(x, y)) / max(
+                       max(float(b.abs().max()) for b in y), 1e-300)
+    ops = {}
+    for where in (dev, "cpu"):
+        s = s64[str(where)]
+        Gd = s.grid.to(dtype=torch.float64)
+        h = s.h_ice.double()
+        uc, vc = (a.to(h.device) for a in ref)
+        with torch.inference_mode():
+            nu_h = _glen_visc(uc, vc, h, Gd, s.params)
+            area = Gd.areaT
+            m = s.mask_shelf.double()
+            ops[str(where)] = (nu_h,) + _apply_ssa(uc, vc, nu_h * m, Gd, m,
+                                                   area, 1e3 * m)
+    tight = {"viscosity": diff(ops[str(dev)][:1], ops["cpu"][:1]),
+             "operator": diff(ops[str(dev)][1:], ops["cpu"][1:]),
+             f"1 x {SSA_CUT['n_cg']} solve": diff(out["cut", str(dev)],
+                                                  out["cut", "cpu"])}
+    err = diff(out["solve", str(dev)], ref)
+    sens = diff(out["ulp", "cpu"], ref)
+    log(f"[ice_solo] float64 on the 80 x 640 wedge, card against CPU: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in tight.items())
+        + f" of the max-abs (tol 1e-10); the driver's 8 x 60 ssa_solve "
+        f"{err:.3e} of the max speed ({speed * 3.15576e7:.2f} m/yr), the "
+        f"CPU against itself with the thickness one ulp larger {sens:.3e} "
+        f"(held to 10 times that); CG residual relative to the driving "
+        f"stress after each Picard iteration: card "
+        + " ".join(f"{r:.3e}" for r in res["solve", str(dev)]) + ", CPU "
+        + " ".join(f"{r:.3e}" for r in res["solve", "cpu"]))
+    if not (max(tight.values()) <= 1e-10
+            and err <= 10.0 * max(sens, 1e-13)):
+        raise AssertionError(f"[ice_solo] card against CPU {tight}, the "
+                             f"whole solve {err}, one ulp {sens}")
+
+
 SOLO_OUT = os.path.join(OUT, "solo")
 # the run directories of the idealized user cases: card against CPU
 NEW_CONFIGS = ("dome2d_overflow", "dumbbell", "hurricane", "neverworld",
@@ -3670,8 +4020,8 @@ def _run_solo(runs, n_at_once=N_SOLO_PROCS):
     return secs
 
 
-def _start_solo(d, args):
-    """Start ``python -m mom6_tpu_torch.drivers.solo d args``; returns
+def _start_solo(d, args, driver="solo"):
+    """Start ``python -m mom6_tpu_torch.drivers.<driver> d args``; returns
     (process, start time, its log file)."""
     # one thread, at a lower priority: these runs fill the cores the
     # physics gates beside them leave idle, and the longest gate, a
@@ -3679,7 +4029,7 @@ def _start_solo(d, args):
     env = dict(os.environ, PYTHONPATH=TREE, OMP_NUM_THREADS="1")
     log_f = open(os.path.join(d, "solo.log"), "w")
     proc = subprocess.Popen(
-        [sys.executable, "-m", "mom6_tpu_torch.drivers.solo", d]
+        [sys.executable, "-m", f"mom6_tpu_torch.drivers.{driver}", d]
         + list(args), cwd=TREE, env=env, stdout=log_f,
         stderr=subprocess.STDOUT)
     os.setpriority(os.PRIO_PROCESS, proc.pid, 10)
@@ -4373,6 +4723,15 @@ def main():
         log(f"[time] stoch: {time.time() - t0:.1f} s")
         log(f"[card] {card}")
         return
+    if "--hybgen" in sys.argv:
+        t0 = time.time()
+        phase_hybgen(dev, ms, card)
+        del ms
+        torch.cuda.empty_cache()
+        phase_ice_solo(dev, card)
+        log(f"[time] hybgen and ice_solo: {time.time() - t0:.1f} s")
+        log(f"[card] {card}")
+        return
     if "--coupled" in sys.argv:
         _check_tridiag_shared(dev, COUPLED_SHARED)
         _check_remap(COUPLED_REMAP, dev, {})
@@ -4412,6 +4771,8 @@ def main():
     timed("rng", phase_rng, dev, card)
     timed("eos", phase_eos, dev, card)
     counts["stoch"] = timed("stoch", phase_stoch, dev, card)
+    counts["hybgen"] = timed("hybgen", phase_hybgen, dev, ms, card)
+    timed("ice_solo", phase_ice_solo, dev, card)
     del ms
     torch.cuda.empty_cache()
     # the gates' processes run beside the checks that follow (nothing after

@@ -8,9 +8,11 @@ v on face columns (face thicknesses are the means of the adjacent
 columns, before and after): three launches of the remap kernel on the
 card.  Ported modes: LAYER (no regridding), ZSTAR, SIGMA,
 SIGMA_SHELF_ZSTAR (sigma on shallow columns, z* on deep ones), RHO
-(isopycnal targets), HYCOM1 (isopycnal below a nominal z* floor) and
+(isopycnal targets), HYCOM1 (isopycnal below a nominal z* floor),
 ADAPTIVE (the interfaces flattened toward neutral density and smoothed
-by one Thomas solve); HYBGEN raises.
+by one Thomas solve) and HYBGEN (the interfaces relaxed toward the
+isopycnal ones above a minimum z profile; after the remap, T and S are
+unmixed back toward the layers' targets, pair by pair).
 """
 
 from __future__ import annotations
@@ -21,17 +23,18 @@ from typing import Optional
 import torch
 
 from mom6_tpu_torch.ale.regridding import (AdaptParams, build_adaptive_grid,
+                                           build_hybgen_grid,
                                            build_hycom1_grid, build_rho_grid,
                                            build_sigma_grid,
                                            build_sigma_shelf_zstar_grid,
-                                           build_zstar_grid)
+                                           build_zstar_grid, hybgen_unmix)
 from mom6_tpu_torch.ale.remapping import (PPM_H4, remap_column,
                                           remap_columns_multi)
 from mom6_tpu_torch.eos import get_eos
 from mom6_tpu_torch.framework.stencil import ip1, jp1
 
 __all__ = ["ALEParams", "ale_regrid_remap", "LAYER", "ZSTAR", "SIGMA",
-           "SIGMA_SHELF_ZSTAR", "RHO", "HYCOM1", "ADAPTIVE"]
+           "SIGMA_SHELF_ZSTAR", "RHO", "HYCOM1", "ADAPTIVE", "HYBGEN"]
 
 LAYER = "LAYER"
 ZSTAR = "ZSTAR"
@@ -40,7 +43,7 @@ SIGMA_SHELF_ZSTAR = "SIGMA_SHELF_ZSTAR"
 RHO = "RHO"
 HYCOM1 = "HYCOM1"
 ADAPTIVE = "ADAPTIVE"
-_UNPORTED = ("HYBGEN",)
+HYBGEN = "HYBGEN"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,10 +51,10 @@ class ALEParams:
     mode: str = ZSTAR
     dz_nominal: tuple = ()         # nominal z* thicknesses (nz,)
     shelf_depth: float = 200.0     # SIGMA_SHELF_ZSTAR's transition [m]
-    rho_targets: tuple = ()        # RHO and HYCOM1 target densities (nz,)
+    rho_targets: tuple = ()        # RHO, HYCOM1, HYBGEN target densities
     scheme: str = PPM_H4
     min_thickness: float = 1e-10
-    eos_name: str = "WRIGHT"       # the RHO, HYCOM1 and ADAPTIVE modes' EOS
+    eos_name: str = "WRIGHT"       # the density modes' EOS
     # the ADAPTIVE mode's constants (the ADAPT_* keys)
     adapt_time_ratio: float = 0.1
     adapt_zoom_depth: float = 200.0
@@ -60,6 +63,8 @@ class ALEParams:
     adapt_alpha: float = 1.0
     adapt_drho0: float = 0.5
     adapt_do_min: bool = False
+    # the HYBGEN mode's relaxation fraction (1 / HYBGEN_RELAX_PERIOD)
+    hybgen_qrlx: float = 0.25
 
 
 def ale_regrid_remap(state, G, GV, p: ALEParams,
@@ -67,8 +72,6 @@ def ale_regrid_remap(state, G, GV, p: ALEParams,
     """Returns (new_state, extra_tracers_new)."""
     if p.mode == LAYER:
         return state, extra_tracers
-    if p.mode in _UNPORTED:
-        raise NotImplementedError(f"ALE mode {p.mode} is not ported")
     h = state.h
     if p.mode == ZSTAR:
         h_new = build_zstar_grid(h, G.bathyT, p.dz_nominal, p.min_thickness)
@@ -84,6 +87,11 @@ def ale_regrid_remap(state, G, GV, p: ALEParams,
         h_new = build_hycom1_grid(h, state.T, state.S, GV,
                                   get_eos(p.eos_name), p.rho_targets,
                                   p.dz_nominal, min_thickness=p.min_thickness)
+    elif p.mode == HYBGEN:
+        h_new = build_hybgen_grid(h, state.T, state.S, GV,
+                                  get_eos(p.eos_name), p.rho_targets,
+                                  p.dz_nominal, qhybrlx=p.hybgen_qrlx,
+                                  min_thickness=p.min_thickness)
     elif p.mode == ADAPTIVE:
         ap = AdaptParams(time_ratio=p.adapt_time_ratio,
                          zoom_depth=p.adapt_zoom_depth,
@@ -114,6 +122,9 @@ def ale_regrid_remap(state, G, GV, p: ALEParams,
             idx = 2
         if n_extra:
             extra_new = out[idx:idx + n_extra]
+    if p.mode == HYBGEN and T_new is not None and p.rho_targets:
+        T_new, S_new = hybgen_unmix(T_new, S_new, h_new, GV,
+                                    get_eos(p.eos_name), p.rho_targets)
 
     # the faces' remap kept on the wet faces with torch.where (the
     # reference multiplies by the mask, which keeps a NaN of a land face)

@@ -1,8 +1,8 @@
 """Target grids of the ALE vertical coordinate
 (twin of mom6_tpu/ale/regridding.py: build_zstar_grid, build_sigma_grid,
 build_sigma_shelf_zstar_grid, build_rho_grid, build_hycom1_grid,
-AdaptParams with build_adaptive_grid and uniform_dz_profile; HYBGEN is
-not ported).
+AdaptParams with build_adaptive_grid, build_hybgen_grid, hybgen_unmix
+and uniform_dz_profile).
 """
 
 from __future__ import annotations
@@ -18,7 +18,8 @@ from mom6_tpu_torch.framework.stencil import im1, ip1, jm1, jp1
 
 __all__ = ["AdaptParams", "build_zstar_grid", "build_sigma_grid",
            "build_sigma_shelf_zstar_grid", "build_rho_grid",
-           "build_hycom1_grid", "build_adaptive_grid", "uniform_dz_profile"]
+           "build_hycom1_grid", "build_adaptive_grid", "build_hybgen_grid",
+           "hybgen_unmix", "uniform_dz_profile"]
 
 
 def uniform_dz_profile(nz: int, max_depth: float) -> np.ndarray:
@@ -223,3 +224,67 @@ def build_adaptive_grid(h, T, S, G, GV, eos, p: AdaptParams = None, *,
     h_new = torch.clamp(z_full[1:] - z_full[:-1], min=min_thickness)
     scale = col / torch.clamp(vsum(h_new), min=1e-30)
     return h_new * scale[None]
+
+
+def build_hybgen_grid(h, T, S, GV, eos, rho_targets, dz_min_profile, *,
+                      qhybrlx: float = 0.25, min_thickness: float = 1e-10,
+                      p_ref: float = 2e7):
+    """HYCOM's hybrid generator (MOM_hybgen_regrid.F90): each interior
+    interface moves ``qhybrlx`` (1 / HYBGEN_RELAX_PERIOD) of the way from
+    where it is toward its isopycnal position (:func:`build_rho_grid`),
+    is pushed down to at least the running sum of ``dz_min_profile``
+    (the minimum z-layer profile, clipped to the column), clamped to the
+    column and kept in order; each column keeps its sum."""
+    dz0 = torch.as_tensor(dz_min_profile, dtype=h.dtype, device=h.device)
+    col = vsum(h)
+    z_old = vcumsum(h)
+    h_rho = build_rho_grid(h, T, S, GV, eos, rho_targets,
+                           min_thickness=min_thickness, p_ref=p_ref)
+    z_rho = vcumsum(h_rho)
+    z_int = z_old[:-1] + qhybrlx * (z_rho[:-1] - z_old[:-1])
+    zmin = vcumsum(dz0)[:-1, None, None]
+    z_int = torch.maximum(z_int, torch.minimum(zmin, col[None]))
+    z_int = torch.minimum(torch.clamp(z_int, min=0.0), col[None])
+    z_int = torch.cummax(z_int, dim=0).values
+    z_full = torch.cat([torch.zeros_like(col[None]), z_int, col[None]], 0)
+    h_new = torch.clamp(z_full[1:] - z_full[:-1], min=min_thickness)
+    scale = col / torch.clamp(vsum(h_new), min=1e-30)
+    return h_new * scale[None]
+
+
+def hybgen_unmix(T, S, h, GV, eos, rho_targets, *, k_fixed: int = 2,
+                 q_max: float = 0.25, p_ref: float = 2e7):
+    """HYCOM's unmixing (MOM_hybgen_unmix.F90): top down over the pairs
+    (k, k+1), a volume delta = h_k (target_k - rho_k) / (rho_k+1 - rho_k),
+    clipped to [0, q_max min(h_k, h_k+1)], is swapped between the two
+    layers so that layer k's potential density (referenced to ``p_ref``)
+    returns toward its target; none where the pair is not stably
+    stratified by more than 1e-6 or above ``k_fixed``.  The swap is
+    antisymmetric, so each column keeps its heat and salt.  A loop over
+    the nz - 1 pairs on whole (ny, nx) planes, each pair seeing the lower
+    layer as the previous swap left it.  Returns (T, S)."""
+    nz = h.shape[0]
+    rho_t = torch.as_tensor(rho_targets, dtype=h.dtype, device=h.device)
+    p = torch.full_like(T[0], p_ref)
+    T, S = T.clone(), S.clone()
+
+    def rho_of(Tk, Sk):
+        return GV.rho0 + eos.density(Tk, Sk, p, rho_ref=GV.rho0)
+
+    for k in range(nz - 1):
+        Tk, Sk, Tk1, Sk1 = T[k], S[k], T[k + 1], S[k + 1]
+        hk, hk1 = h[k], h[k + 1]
+        r_k = rho_of(Tk, Sk)
+        denom = rho_of(Tk1, Sk1) - r_k
+        delta = hk * (rho_t[k] - r_k) / torch.where(
+            torch.abs(denom) > 1e-6, denom, 1e30)
+        delta = torch.minimum(torch.clamp(delta, min=0.0),
+                              q_max * torch.minimum(hk, hk1))
+        delta = torch.where((denom > 1e-6) & (k >= k_fixed), delta, 0.0)
+        fT = delta * (Tk1 - Tk)
+        fS = delta * (Sk1 - Sk)
+        ik = torch.clamp(hk, min=1e-3)
+        ik1 = torch.clamp(hk1, min=1e-3)
+        T[k], T[k + 1] = Tk + fT / ik, Tk1 + -fT / ik1
+        S[k], S[k + 1] = Sk + fS / ik, Sk1 + -fS / ik1
+    return T, S

@@ -30,14 +30,18 @@ not cover it whole.  :func:`remap_integrals_cellwise` states that order
 in plain PyTorch; the tests hold it bitwise against
 :func:`remap_integrals_plain`, ties and vanished layers included.
 
-Ported schemes: PCM, PLM, PPM_H4 and PPM_IH4 (three coefficients a
+Schemes: PCM, PLM, PPM_H4, PPM_IH4 and PPM_H6 (three coefficients a
 cell; PPM_IH4's edge values solve the compact fourth-order tridiagonal
 system of each column with the Thomas kernel, its two boundary rows a
-cubic fitted to the four cells nearest each end), and
+cubic fitted to the four cells nearest each end; PPM_H6's are the
+explicit sixth-order uniform-grid weights, H4's within three cells of
+either end), P3M_H4 (the monotone cubic through the limited H4 edge
+values and slopes, shifted to keep the cell mean or else the PPM
+parabola, five coefficients of which the last is 0) and
 PQM_IH4IH3 (five: the White & Adcroft quartic through the explicit H4
 edge values and the interface slopes, the PPM parabola where the quartic
-leaves its cell's bounds), which the kernel takes in its NPOLY = 5 form;
-the reference's others raise.
+leaves its cell's bounds).  The five-coefficient schemes take the
+kernel's NPOLY = 5 form.
 """
 
 from __future__ import annotations
@@ -46,19 +50,21 @@ import numpy as np
 import torch
 
 from mom6_tpu_torch.framework import kernels
-from mom6_tpu_torch.framework.arith import ipow, rdiv, vcumsum, vsum
+from mom6_tpu_torch.framework.arith import ipow, rdiv, sdiv, vcumsum, vsum
 from mom6_tpu_torch.framework.solvers import tridiag_solve
 
 __all__ = ["remap_column", "remap_columns_multi", "remap_coefficients",
            "remap_integrals_plain", "remap_integrals_cellwise", "reconstruct",
-           "PCM", "PLM", "PPM_H4", "PPM_IH4", "PQM_IH4IH3"]
+           "PCM", "PLM", "PPM_H4", "PPM_IH4", "PPM_H6", "P3M_H4",
+           "PQM_IH4IH3"]
 
 PCM = "PCM"
 PLM = "PLM"
 PPM_H4 = "PPM_H4"
 PPM_IH4 = "PPM_IH4"
+PPM_H6 = "PPM_H6"
+P3M_H4 = "P3M_H4"
 PQM_IH4IH3 = "PQM_IH4IH3"
-_UNPORTED = ("PPM_H6", "P3M_H4")
 
 _EPS = 1e-30
 # antiderivative scaling of the reconstruction's coefficients:
@@ -97,6 +103,30 @@ def _edge_values_h4(u, h):
         e_top[nz - 1] = 0.5 * (u[nz - 2] + u[nz - 1])
     e_bot = torch.cat([e_top[1:], u[-1:]], dim=0)
     return e_top, e_bot
+
+
+def _edge_values_h6(u, h):
+    """Explicit sixth-order edge values with the uniform-grid weights
+    (37, -8, 1)/60 on the stencil u[k-3..k+2] of interface k (the ends
+    replicated), the H4 values within three cells of either end and for
+    columns of fewer than six cells.  Returns (e_top, e_bot)."""
+    nz = u.shape[0]
+    if nz < 6:
+        return _edge_values_h4(u, h)
+
+    def sh(k):
+        """u shifted k cells toward the surface, the end cell repeated."""
+        if k > 0:
+            return torch.cat([u[:1].expand((k,) + u.shape[1:]), u[:-k]], 0)
+        return torch.cat([u[-k:], u[-1:].expand((-k,) + u.shape[1:])], 0)
+
+    c1, c2, c3 = 37.0 / 60.0, -8.0 / 60.0, 1.0 / 60.0
+    e_top = (c1 * (sh(1) + u) + c2 * (sh(2) + sh(-1))
+             + c3 * (sh(3) + sh(-2)))
+    e4_t, e4_b = _edge_values_h4(u, h)
+    k = torch.arange(nz, device=u.device).reshape((nz,) + (1,) * (u.dim() - 1))
+    e_top = torch.where((k >= 3) & (k <= nz - 3), e_top, e4_t)
+    return e_top, torch.cat([e_top[1:], e4_b[-1:]], 0)
 
 
 def _edge_values_implicit_h4(u, h):
@@ -224,6 +254,60 @@ def _pqm_coeffs(u, h, e_l, e_r, s_l, s_r):
             30.0 * r1 - 15.0 * r2 + 2.5 * r3)
 
 
+def _p3m(u, h):
+    """P3M_H4's coefficients (c0, .., c3, 0): the cubic through the
+    limited H4 edge values with the edge slopes, each limited by twice
+    the one-sided slope; where the cubic's derivative would change sign
+    on [0, 1] (at an end or at its vertex) the slopes are dropped and the
+    derivative is 6 (eR - eL) xi (1 - xi).
+
+    A cubic through the edges and slopes alone has the mean
+    (eL + eR) / 2 + (u1l - u1r) / 12, not the cell's: c0 takes up the
+    difference d where eL + d and eR + d stay within the means of the
+    cell and its neighbours, and elsewhere the cell takes the PPM
+    parabola on the same edges, so that the remap keeps each column's
+    content and its clip to the column's range stays idle (MOM6 puts d
+    back in each source cell's thickest sub-cell, remap_via_sub_cells;
+    the reference does neither, ROADMAP queue 3)."""
+    e_l, e_r = _ppm_limit(u, *_edge_values_h4(u, h))
+    s_l, s_r = _edge_slopes(u, h)
+    u_m = torch.cat([u[:1], u[:-1]], dim=0)
+    u_p = torch.cat([u[1:], u[-1:]], dim=0)
+    hn = torch.clamp(h, min=_EPS)
+    sig_l = 2.0 * (u - u_m) / hn
+    sig_r = 2.0 * (u_p - u) / hn
+    s_l = torch.where(torch.abs(s_l) > torch.abs(sig_l), sig_l, s_l)
+    s_r = torch.where(torch.abs(s_r) > torch.abs(sig_r), sig_r, s_r)
+    u1l, u1r = s_l * h, s_r * h
+
+    def cubic(u1l, u1r):
+        return (u1l, 3.0 * (e_r - e_l) - u1r - 2.0 * u1l,
+                u1r + u1l + 2.0 * (e_l - e_r))
+
+    a1, a2, a3 = cubic(u1l, u1r)
+    q0 = a1
+    q1 = a1 + 2.0 * a2 + 3.0 * a3
+    tiny = torch.where(a3 >= 0, torch.full_like(a3, 1e-30),
+                       torch.full_like(a3, -1e-30))
+    xi_v = torch.where(torch.abs(a3) > 1e-12, -a2 / (3.0 * a3 + tiny),
+                       torch.full_like(a3, 0.5))
+    xi_v = torch.clamp(xi_v, 0.0, 1.0)
+    qv = a1 + xi_v * (2.0 * a2 + 3.0 * a3 * xi_v)
+    non_mono = (q0 * q1 < 0.0) | (q0 * qv < 0.0) | (qv * q1 < 0.0)
+    zero = torch.zeros_like(u)
+    a1, a2, a3 = cubic(torch.where(non_mono, zero, u1l),
+                       torch.where(non_mono, zero, u1r))
+    d = u - (e_l + 0.5 * a1 + sdiv(a2, 3.0) + 0.25 * a3)
+    lo = torch.minimum(torch.minimum(u_m, u), u_p)
+    hi = torch.maximum(torch.maximum(u_m, u), u_p)
+    ok = ((e_l + d >= lo) & (e_l + d <= hi) & (e_r + d >= lo)
+          & (e_r + d <= hi))
+    return (e_l + torch.where(ok, d, zero),
+            torch.where(ok, a1, 6.0 * u - 4.0 * e_l - 2.0 * e_r),
+            torch.where(ok, a2, 3.0 * ((e_l + e_r) - 2.0 * u)),
+            torch.where(ok, a3, zero), zero)
+
+
 def _pqm(u, h):
     """PQM_IH4IH3's five coefficients: the limited explicit H4 edges, the
     edge slopes zeroed where the cell is an extremum or where they
@@ -254,24 +338,24 @@ def _pqm(u, h):
 def reconstruct(u, h, scheme: str):
     """Per-cell coefficients (c0, c1, c2) of u(xi) = c0 + c1 xi + c2 xi^2
     on [0, 1] (the reference returns five, the last two zero for these
-    schemes), and for PQM_IH4IH3 the five (c0, .., c4) of the quartic."""
+    schemes), and for P3M_H4 and PQM_IH4IH3 the five (c0, .., c4)."""
     if scheme == PCM:
         z = torch.zeros_like(u)
         return u, z, z
     if scheme == PLM:
         slp = _plm_slopes(u, h)
         return u - 0.5 * slp, slp, torch.zeros_like(u)
-    if scheme in (PPM_H4, PPM_IH4):
-        edges = _edge_values_implicit_h4 if scheme == PPM_IH4 \
-            else _edge_values_h4
+    if scheme in (PPM_H4, PPM_IH4, PPM_H6):
+        edges = {PPM_H4: _edge_values_h4, PPM_IH4: _edge_values_implicit_h4,
+                 PPM_H6: _edge_values_h6}[scheme]
         e_l, e_r = _ppm_limit(u, *edges(u, h))
         # u(xi) = eL + xi[(eR-eL) + 6(1-xi)(u - (eL+eR)/2)]  (CW84)
         return (e_l, 6.0 * u - 4.0 * e_l - 2.0 * e_r,
                 3.0 * ((e_l + e_r) - 2.0 * u))
+    if scheme == P3M_H4:
+        return _p3m(u, h)
     if scheme == PQM_IH4IH3:
         return _pqm(u, h)
-    if scheme in _UNPORTED:
-        raise NotImplementedError(f"remapping scheme {scheme} is not ported")
     raise ValueError(f"unknown remapping scheme {scheme}")
 
 
@@ -401,7 +485,7 @@ def remap_columns_multi(fields, h0, h1, scheme: str = PPM_H4):
     CPU tensors take :func:`remap_integrals_plain`; CUDA tensors launch
     the kernel (float32 or float64), counted in
     ``remap_columns_multi.launches``, and its quartic instance (NPOLY = 5,
-    PQM_IH4IH3) also in ``remap_columns_multi.quartic_launches``."""
+    P3M_H4 and PQM_IH4IH3) also in ``remap_columns_multi.quartic_launches``."""
     coef, lo, hi = remap_coefficients(fields, h0, scheme)
     if fields.device.type == "cpu":
         return remap_integrals_plain(coef, h0, h1, lo, hi)

@@ -87,10 +87,10 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from mom6_tpu_torch.ale.ale import (ADAPTIVE, HYCOM1, LAYER, SIGMA,
+from mom6_tpu_torch.ale.ale import (ADAPTIVE, HYBGEN, HYCOM1, LAYER, SIGMA,
                                     SIGMA_SHELF_ZSTAR, ZSTAR, ALEParams)
-from mom6_tpu_torch.ale.remapping import (PCM, PLM, PPM_H4, PPM_IH4,
-                                          PQM_IH4IH3)
+from mom6_tpu_torch.ale.remapping import (P3M_H4, PCM, PLM, PPM_H4, PPM_H6,
+                                          PPM_IH4, PQM_IH4IH3)
 from mom6_tpu_torch.core.barotropic import BTParams, set_dtbt
 from mom6_tpu_torch.core.dynamics_split_rk2 import DynParams, MechForcing
 from mom6_tpu_torch.core.dynamics_unsplit import UnsplitParams
@@ -167,9 +167,9 @@ _INERT = {
 # the mosaics that are generated and not committed
 _GENERATED = {(720, 400): dict(nx=720, ny_reg=336, ny_cap=64)}
 # the remap schemes and the regrid coordinates the port has
-_SCHEMES = (PCM, PLM, PPM_H4, PPM_IH4, PQM_IH4IH3)
+_SCHEMES = (PCM, PLM, PPM_H4, PPM_IH4, PPM_H6, P3M_H4, PQM_IH4IH3)
 _COORDINATES = ("Z*", "ZSTAR", SIGMA, SIGMA_SHELF_ZSTAR, "RHO", HYCOM1,
-                ADAPTIVE)
+                HYBGEN, ADAPTIVE)
 
 
 class ModelSetup(NamedTuple):
@@ -659,6 +659,47 @@ def _input_path(pf: ParamFile, fname: str, input_dir) -> str:
     if not os.path.isabs(idir):
         idir = os.path.join(input_dir or pf.dir, idir)
     return os.path.join(idir, fname)
+
+
+def _ts_from_z(pf: ParamFile, G, h, input_dir, m: str):
+    """TS_CONFIG = from_Z (MOM_temp_salt_initialize_from_Z): T and S of a
+    z-level climatology file (``z_edges``, the two variables, and on a
+    grid of its own ``lon`` and ``lat``) remapped onto the layers ``h``
+    by grid/z_init.py.  A climatology on its own grid is first
+    interpolated and filled onto every wet cell on the host
+    (grid/horiz_regrid.py; periodic in longitude on the spherical,
+    Mercator and mosaic grids)."""
+    from mom6_tpu_torch.grid.horiz_regrid import \
+        horiz_interp_and_extrap_tracer
+    from mom6_tpu_torch.grid.z_init import init_tracer_from_z
+    zfile = pf.get("TEMP_SALT_Z_INIT_FILE", str, module=m,
+                   desc="NetCDF with z_edges + ptemp + salt")
+    tvar = pf.get("Z_INIT_FILE_PTEMP_VAR", str, default="ptemp", module=m)
+    svar = pf.get("Z_INIT_FILE_SALT_VAR", str, default="salt", module=m)
+    raw = read_nc(_input_path(pf, zfile, input_dir))
+    z_edges = np.asarray(raw["z_edges"], np.float64)
+    t_raw = np.asarray(raw[tvar], np.float64)
+    s_raw = np.asarray(raw[svar], np.float64)
+    if "lon" in raw and "lat" in raw and t_raw.ndim == 3 \
+            and t_raw.shape[1:] != (G.ny, G.nx):
+        missv = pf.get("Z_INIT_DATA_MISSING", float, default=np.nan,
+                       module=m, desc="Missing value in the climatology "
+                       "(NaN always treated as missing)")
+        per = 360.0 if pf.get(
+            "GRID_CONFIG", str, default="cartesian",
+            module="MOM_grid_init") in ("spherical", "mercator",
+                                        "mosaic") else 0.0
+        kw = dict(wet=G.mask2dT.cpu().numpy() > 0.5,
+                  dst_lon=G.geoLonT.cpu().numpy(),
+                  dst_lat=G.geoLatT.cpu().numpy(),
+                  missing_value=None if np.isnan(missv) else missv,
+                  periodic_lon=per, cyclic_x=bool(G.cyclic_x))
+        t_raw = horiz_interp_and_extrap_tracer(raw["lon"], raw["lat"],
+                                               t_raw, **kw)
+        s_raw = horiz_interp_and_extrap_tracer(raw["lon"], raw["lat"],
+                                               s_raw, **kw)
+    return (init_tracer_from_z(z_edges, t_raw, h, G.bathyT),
+            init_tracer_from_z(z_edges, s_raw, h, G.bathyT))
 
 
 def _bilinear(raw: dict, G):
@@ -1549,13 +1590,18 @@ def build_model_from_params(pf: ParamFile, *, dtype=torch.float32,
                 f"(only {', '.join(_COORDINATES)})")
         dz = pf.get_list("ALE_RESOLUTION", default=[max_depth / nz] * nz,
                          module=m)
-        if mode in ("RHO", HYCOM1):
+        if mode in ("RHO", HYCOM1, HYBGEN):
             rlay = pf.get_list("ALE_RHO_TARGETS",
                                default=gv.Rlay.cpu().numpy().tolist(),
                                module=m)
+            qrlx = 0.25
+            if mode == HYBGEN:
+                qrlx = 1.0 / max(pf.get("HYBGEN_RELAX_PERIOD", float,
+                                        default=4.0, module=m), 1.0)
             ale = ALEParams(mode=mode, rho_targets=tuple(rlay),
-                            dz_nominal=tuple(dz) if mode == HYCOM1 else (),
-                            eos_name=eos_name, scheme=remap_scheme)
+                            dz_nominal=tuple(dz) if mode != "RHO" else (),
+                            eos_name=eos_name, scheme=remap_scheme,
+                            hybgen_qrlx=qrlx)
         elif mode == SIGMA:
             ale = ALEParams(mode=SIGMA, scheme=remap_scheme)
         elif mode == SIGMA_SHELF_ZSTAR:
@@ -1682,11 +1728,20 @@ def build_model_from_params(pf: ParamFile, *, dtype=torch.float32,
             int_tides, G.ny, G.nx, dtype, device))
     if use_thermo:
         ts_cfg = _one_of(pf, "TS_CONFIG", "fit",
-                         ("fit", "benchmark", "front", "rossby_front"), m)
+                         ("fit", "benchmark", "front", "rossby_front",
+                          "from_Z"), m)
         t_ref = pf.get("T_REF", float, default=10.0, units="degC", module=m)
         s_ref = pf.get("S_REF", float, default=35.0, units="ppt", module=m)
         shape = tuple(state.h.shape)
-        if ts_cfg == "benchmark":
+        S = None
+        if ts_cfg == "from_Z":
+            T, S = _ts_from_z(pf, G, state.h, input_dir, m)
+            if pf.has("T_RANGE"):
+                # the profile's, which from_Z leaves unused (the
+                # reference leaves it unread): a run directory that sets
+                # it for the other TS_CONFIGs still builds
+                pf.get("T_RANGE", float, module=m)
+        elif ts_cfg == "benchmark":
             # the layers' target temperatures, the SST in the mixed and
             # buffer layers
             T0, k1, sst = _benchmark_t_profile(pf, gv, eos_name, nz, G, m,
@@ -1709,8 +1764,9 @@ def build_model_from_params(pf: ParamFile, *, dtype=torch.float32,
             tprof = t_ref + trange * (0.5 - zc / max_depth)
             T = torch.tensor(np.broadcast_to(tprof[:, None, None], shape),
                              dtype=dtype, device=device)
-        state = state.replace(
-            T=T, S=torch.full(shape, s_ref, dtype=dtype, device=device))
+        if S is None:
+            S = torch.full(shape, s_ref, dtype=dtype, device=device)
+        state = state.replace(T=T, S=S)
     if use_thermo and ale.mode != LAYER and (
             diab.boundary_layer_scheme in ("KPP", "EPBL")
             or diab.use_shear_mixing):

@@ -90,11 +90,9 @@ __all__ = ["export", "load_grid", "load_vgrid", "load_state",
 
 # reference fields with no counterpart in the port that may carry a
 # value: each only tunes a subsystem that is not ported (the wide-halo
-# subcycle, the HYBGEN regrid mode), which the port rejects where it is
-# switched on
+# subcycle), which the port rejects where it is switched on
 _DROPPED = {
     "BTParams": {"halo_per_substep"},
-    "ALEParams": {"hybgen_qrlx"},
 }
 # reference fields whose value the port fixes as a constant: the
 # reference's value must be that constant

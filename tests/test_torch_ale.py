@@ -33,6 +33,7 @@ from mom6_tpu_torch.ale import remapping as TR
 from mom6_tpu_torch.ale.ale import ALEParams, ale_regrid_remap
 from mom6_tpu_torch.ale.regridding import (build_zstar_grid,
                                            uniform_dz_profile)
+from test_torch_hybgen_ice import reference_p3m_mean_kept
 
 torch.set_num_threads(1)
 
@@ -294,15 +295,29 @@ def test_remap_kernel_wrapper_has_no_fallback_for_other_devices():
         TR.remap_columns_multi(d, h, h, TR.PCM)
 
 
-# the id "PPM_IH4" keeps its name; PPM_IH4 is ported, so it holds P3M_H4,
-# a scheme still to port
-@pytest.mark.parametrize("scheme", [
-    pytest.param("P3M_H4", id="PPM_IH4"), "PPM_H6", "P3M_H4"])
-def test_unported_schemes_raise(scheme):
-    f, h0, h1 = _problem(nf=1)
-    with pytest.raises(NotImplementedError, match=scheme):
-        TR.remap_columns_multi(*(torch.from_numpy(a) for a in (f, h0, h1)),
-                               scheme)
+# the ids "PPM_IH4", "PPM_H6" and "P3M_H4" keep their names; every
+# remap scheme of the reference is ported, so no value is left to refuse:
+# each case holds the scheme's remap against the reference (P3M_H4, the
+# id PPM_IH4 held last, with vanished layers); the reference's P3M_H4
+# takes the port's repair of its cell mean (ROADMAP queue 3)
+@pytest.mark.parametrize("scheme,vanished", [
+    pytest.param("P3M_H4", True, id="PPM_IH4"),
+    pytest.param("PPM_H6", False, id="PPM_H6"),
+    pytest.param("P3M_H4", False, id="P3M_H4")])
+def test_unported_schemes_raise(scheme, vanished):
+    """The new schemes' remaps against the reference (float32, 2e-6 of
+    max-abs), on the CPU's plain version; P3M_H4 takes five
+    coefficients."""
+    f, h0, h1 = _problem(nz0=12, nz1=9, nf=2, vanished=vanished, seed=5)
+    with reference_p3m_mean_kept():
+        want = R.remap_columns_multi(jnp.asarray(f), jnp.asarray(h0),
+                                     jnp.asarray(h1), scheme)
+    got = TR.remap_columns_multi(*(torch.from_numpy(a) for a in (f, h0, h1)),
+                                 scheme)
+    _close(got, want, 2e-6)
+    coef = TR.remap_coefficients(torch.from_numpy(f), torch.from_numpy(h0),
+                                 scheme)[0]
+    assert coef.shape[1] == (5 if scheme == TR.P3M_H4 else 3)
 
 
 @pytest.fixture(scope="module")
@@ -356,20 +371,44 @@ def test_ale_regrid_remap_parity(gyre):
         _close(getattr(got, k), getattr(want, k), 1e-5)
 
 
-# the ids "ADAPTIVE", "SIGMA" and "SIGMA_SHELF_ZSTAR" keep their names;
-# those modes are ported, so each holds the mode with a remap scheme still
-# to port (PPM_H6 or P3M_H4), which raises after the grid is built
-@pytest.mark.parametrize("mode,scheme,match", [
-    ("SIGMA", "P3M_H4", "P3M_H4"), ("ADAPTIVE", "PPM_H6", "PPM_H6"),
-    ("HYBGEN", "PPM_H4", "HYBGEN"),
-    ("SIGMA_SHELF_ZSTAR", "PPM_H6", "PPM_H6")],
+# the ids "SIGMA", "ADAPTIVE", "HYBGEN" and "SIGMA_SHELF_ZSTAR" keep
+# their names; every mode and scheme of the reference is ported, so
+# nothing is left for ale_regrid_remap to refuse: each case holds the
+# mode with the scheme it held against the reference (P3M_H4's with the
+# port's repair of its cell mean, ROADMAP queue 3)
+@pytest.mark.parametrize("mode,scheme", [
+    ("SIGMA", "P3M_H4"), ("ADAPTIVE", "PPM_H6"), ("HYBGEN", "PPM_H4"),
+    ("SIGMA_SHELF_ZSTAR", "PPM_H6")],
     ids=["SIGMA", "ADAPTIVE", "HYBGEN", "SIGMA_SHELF_ZSTAR"])
-def test_unported_ale_modes_raise(gyre, mode, scheme, match):
-    _, (Gt, GVt, stt, pt, _) = gyre
-    with pytest.raises(NotImplementedError, match=match):
-        ale_regrid_remap(stt, Gt, GVt,
-                         pt.ale.__class__(mode=mode, scheme=scheme,
-                                          dz_nominal=pt.ale.dz_nominal))
+def test_unported_ale_modes_raise(gyre, mode, scheme):
+    """One regrid and remap in each mode with its scheme against the
+    reference, float32: h to 1e-5 of max-abs; T, S, u and v where the
+    new layer or face is thicker than 10 m (a remapped value divides the
+    float32 round-off of the column's integral by the cell's
+    thickness)."""
+    from mom6_tpu.eos import get_eos as ref_get_eos
+    from mom6_tpu_torch.framework.stencil import ip1, jp1
+    (G, GV, st, p), (Gt, GVt, stt, pt, _) = gyre
+    rho = 1035.0 + np.asarray(ref_get_eos("WRIGHT").density(
+        st.T, st.S, jnp.full_like(st.T, 2e7), rho_ref=1035.0))
+    targets = tuple(np.linspace(rho.min(), rho.max(), 6).astype(
+        np.float32).tolist())
+    dz = pt.ale.dz_nominal
+    kw = dict(mode=mode, scheme=scheme, dz_nominal=dz, rho_targets=targets)
+    with reference_p3m_mean_kept():
+        want, _ = ref_ale_regrid_remap(st, G, GV, p.ale._replace(**kw))
+    got, _ = ale_regrid_remap(stt, Gt, GVt, ALEParams(**kw))
+    h = torch.from_numpy(np.array(want.h))
+    thick = {"T": h > 10.0, "S": h > 10.0,
+             "u": 0.5 * (h + ip1(h)) > 10.0, "v": 0.5 * (h + jp1(h)) > 10.0}
+    _close(got.h, want.h, 1e-5)
+    for k, m in thick.items():
+        # HYBGEN's unmixing swaps a volume h (target - rho_k) / (rho_k+1 -
+        # rho_k) of float32 densities near 1035 kg m-3 (ulp 1.2e-4) over
+        # the pair's step: T and S to 1e-4
+        tol = 1e-4 if mode == "HYBGEN" and k in ("T", "S") else 1e-5
+        _close(getattr(got, k) * m, np.asarray(getattr(want, k))
+               * m.numpy(), tol)
 
 
 def test_ale_regrid_remap_rho_parity(gyre):

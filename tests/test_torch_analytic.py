@@ -140,16 +140,16 @@ def test_tracer_batch_names():
 
 
 # the ids "phillips" and "ts-benchmark" keep their names; every
-# THICKNESS_CONFIG of the reference and TS_CONFIG = benchmark are ported,
-# so they hold a TOPO_CONFIG and a TS_CONFIG still to port; so does
-# "generic-tracer": USE_generic_tracer (the NPZD package), CVMix
+# THICKNESS_CONFIG of the reference and every TS_CONFIG (from_Z too) are
+# ported, so they hold a TOPO_CONFIG and BT_WIDE_HALO, still to port; so
+# does "generic-tracer": USE_generic_tracer (the NPZD package), CVMix
 # convection, the Zanna-Bolton closure and SPPT are ported, so it holds
 # SPLIT_RK2B, still to port
 @pytest.mark.parametrize("text,match", [
     ("USE_REGIONAL_DYES = True\nNUM_DYE_TRACERS = 2\n"
      "DYE_SOURCE_MINLON = 1.0,2.0,3.0\n", "DYE_SOURCE_MINLON"),
     ("TOPO_CONFIG = spoon\n", "TOPO_CONFIG"),
-    ("TS_CONFIG = from_Z\n", "TS_CONFIG"),
+    ("BT_WIDE_HALO = 4\n", "BT_WIDE_HALO"),
     ("GRID_CONFIG = spherical\nSPLIT_RK2B = True\n", "SPLIT_RK2B"),
 ], ids=["dye-lengths", "phillips", "ts-benchmark", "generic-tracer"])
 def test_build_rejects(text, match):

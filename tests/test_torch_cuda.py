@@ -13,7 +13,10 @@ bitwise equal; the PPM flux's assertions allow 1e-6 (f32) and 1e-13
 round apart, those of the Thomas solve, the remap and the PPM edges
 demand equality, at the systems PPM_IH4 and JHL's kappa_shear make too.
 The catalog's post on the small tripolar model is held card against CPU
-in float64.
+in float64.  The remap at PPM_H6's and P3M_H4's coefficients and
+init_tracer_from_z's remap from 102 levels are bitwise; HYBGEN, the SSA
+solve and the ice-only driver run on the card, held against the CPU in
+float64.
 """
 
 import functools
@@ -704,3 +707,103 @@ def test_threefry_streams_card_equal_cpu(cuda):
         pats[str(dev)] = (pat.cpu(), key.cpu())
     (a, ka), (b, kb) = pats["cpu"], pats[str(cuda)]
     assert torch.equal(ka, kb) and _rel(b, a) <= 1e-10
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("scheme", ["PPM_H6", "P3M_H4"])
+def test_new_remap_schemes_kernel_equals_plain(cuda, dtype, scheme):
+    """The remap kernel with PPM_H6's three and P3M_H4's five coefficients
+    (its quartic instance, counted apart) against the plain version on
+    the same coefficients, to the bit, vanished layers included."""
+    rng = np.random.default_rng(23)
+    nz0, nz1, ny, nx = 32, 28, 20, 24
+    h0 = 100.0 * (1.0 + 0.4 * rng.uniform(-1, 1, (nz0, ny, nx)))
+    h0[-4:, : ny // 3] = 1e-10
+    w = 1.0 + 0.4 * rng.uniform(-1, 1, (nz1, ny, nx))
+    h1 = w / w.sum(0, keepdims=True) * h0.sum(0, keepdims=True)
+    zc = np.cumsum(h0, 0) - 0.5 * h0
+    f = np.stack([2.0 + 18.0 * np.exp(-zc / 700.0), 35.0 + 0 * zc])
+    f = f + 0.1 * rng.standard_normal(f.shape)
+    t = lambda a: torch.tensor(a, dtype=dtype, device=cuda)
+    f, h0, h1 = t(f), t(h0), t(h1)
+    coef, lo, hi = R.remap_coefficients(f, h0, scheme)
+    assert coef.shape[1] == (5 if scheme == "P3M_H4" else 3)
+    q0 = R.remap_columns_multi.quartic_launches
+    got = R.remap_columns_multi(f, h0, h1, scheme)
+    assert R.remap_columns_multi.quartic_launches - q0 == int(
+        scheme == "P3M_H4")
+    assert torch.equal(got, R.remap_integrals_plain(coef, h0, h1, lo, hi))
+
+
+def test_z_init_card_equals_cpu(cuda):
+    """init_tracer_from_z from WOA's 102 levels onto 32 layers with
+    vanished ones: the card's kernel against the CPU's plain version, to
+    the bit in float64 and float32."""
+    import sys
+    sys.path.insert(0, __file__.rsplit("/", 1)[0])
+    import torch_gates
+    from mom6_tpu_torch.grid.z_init import init_tracer_from_z
+    rng = np.random.default_rng(29)
+    z_edges = torch_gates.woa_z_edges()
+    data = 20.0 - 0.004 * z_edges[:-1, None, None] + rng.standard_normal(
+        (102, 12, 16))
+    h = 4000.0 / 32 * (1.0 + 0.3 * rng.uniform(-1, 1, (32, 12, 16)))
+    h[-3:, :4] = 1e-10
+    for dtype in (torch.float64, torch.float32):
+        out = [init_tracer_from_z(z_edges, data, torch.tensor(
+            h, dtype=dtype, device=dev), None).cpu() for dev in ("cpu", cuda)]
+        assert torch.equal(out[0], out[1]), dtype
+
+
+def test_hybgen_card_equals_cpu(cuda):
+    """build_hybgen_grid and hybgen_unmix in float64 on the card against
+    the CPU: 1e-12 of max-abs (the CPU's powers are the C library's)."""
+    from mom6_tpu_torch.ale.regridding import build_hybgen_grid, hybgen_unmix
+    from mom6_tpu_torch.eos import get_eos
+    from mom6_tpu_torch.grid.vertical import build_layered_vgrid
+    rng = np.random.default_rng(31)
+    nz = 20
+    h = 150.0 * (1.0 + 0.3 * rng.uniform(-1, 1, (nz, 14, 18)))
+    zc = np.cumsum(h, 0) - 0.5 * h
+    T = 2.0 + 20.0 * np.exp(-zc / 600.0) + 0.3 * rng.standard_normal(h.shape)
+    S = 34.6 + 0.5 * np.exp(-zc / 300.0)
+    targets = np.linspace(1031.0, 1037.2, nz).tolist()
+    dz0 = np.minimum(3.0 * 1.18 ** np.arange(nz), 450.0).tolist()
+    out = {}
+    for dev in ("cpu", cuda):
+        t = lambda a: torch.tensor(a, dtype=torch.float64, device=dev)
+        GV = build_layered_vgrid(nz, dtype=torch.float64, device=dev)
+        eos = get_eos("WRIGHT")
+        with torch.inference_mode():
+            hn = build_hybgen_grid(t(h), t(T), t(S), GV, eos, targets, dz0)
+            out[str(dev)] = (hn,) + hybgen_unmix(t(T), t(S), hn, GV, eos,
+                                                 targets)
+    for a, b in zip(out[str(cuda)], out["cpu"]):
+        assert _rel(a, b) <= 1e-12
+
+
+def test_ssa_and_ice_solo_on_the_card(cuda, tmp_path):
+    """ssa_solve in float64 on the driver's wedge, card against CPU within
+    1e-10 of the max speed (the CG's inner products sum in another order
+    on each device); the ice-only driver on the card writes its files."""
+    from mom6_tpu_torch.drivers import ice_solo
+    from mom6_tpu_torch.grid.grid import build_cartesian_grid
+    from mom6_tpu_torch.physics.ice_shelf_dynamics import SSAParams, ssa_solve
+    y = (np.arange(64) + 0.5) / 64
+    h = np.broadcast_to(((800.0 - 600.0 * y) * (y < 0.8))[:, None], (64, 8))
+    out = {}
+    for dev in ("cpu", cuda):
+        G = build_cartesian_grid(8, 64, 8.0, 64.0, max_depth=1000.0,
+                                 dtype=torch.float64, device=dev)
+        with torch.inference_mode():
+            out[str(dev)] = ssa_solve(torch.tensor(
+                h, dtype=torch.float64, device=dev), G, SSAParams())
+    speed = max(float(a.abs().max()) for a in out["cpu"])
+    for a, b in zip(out[str(cuda)], out["cpu"]):
+        assert float((a.cpu() - b).abs().max()) <= 1e-10 * speed
+    (tmp_path / "MOM_input").write_text(
+        "NIGLOBAL = 16\nNJGLOBAL = 16\nLENLON = 80.0\nLENLAT = 80.0\n"
+        "DT = 43200.0\nDAYMAX = 2.0\n")
+    ice_solo.main([str(tmp_path)])
+    assert (tmp_path / "ice.stats").exists()
+    assert (tmp_path / "ICE.res.nc").exists()

@@ -395,17 +395,20 @@ def test_missing_mosaic_is_generated_in_memory(run_dir, small, tmp_path,
 # the ice shelf, the linear buoyancy forcing, the boundary-layer lateral
 # diffusion, double diffusion, convection, the Zanna-Bolton closure, the
 # porous barriers, the interface filter, the Stanley correction, the
-# harmonic SAL, SKEB and the tidal forcing are ported, so they hold
-# SPLIT_RK2B, BT_WIDE_HALO, the remapping schemes PPM_H6 and P3M_H4, a
-# topography and a coordinate still to port
+# harmonic SAL, SKEB, the tidal forcing, every remapping scheme and every
+# coordinate are ported, so they hold SPLIT_RK2B and BT_WIDE_HALO (with
+# other values, and beside a new scheme or HYBGEN) and a topography still
+# to port
 @pytest.mark.parametrize("text,exc,match", [
     ("SPLIT_RK2B = True", NotImplementedError, "SPLIT_RK2B"),
     ("BT_WIDE_HALO = 4", NotImplementedError, "BT_WIDE_HALO"),
-    ("REMAPPING_SCHEME = PPM_H6", NotImplementedError, "REMAPPING_SCHEME"),
-    ("REMAPPING_SCHEME = P3M_H4", NotImplementedError, "REMAPPING_SCHEME"),
+    ("REMAPPING_SCHEME = PPM_H6\nBT_WIDE_HALO = 2", NotImplementedError,
+     "BT_WIDE_HALO"),
+    ("REMAPPING_SCHEME = P3M_H4\nBT_WIDE_HALO = 8", NotImplementedError,
+     "BT_WIDE_HALO"),
     ("TOPO_CONFIG = spoon", NotImplementedError, "TOPO_CONFIG"),
-    ("REGRIDDING_COORDINATE_MODE = HYBGEN", NotImplementedError,
-     "REGRIDDING_COORDINATE_MODE"),
+    ("REGRIDDING_COORDINATE_MODE = HYBGEN\nSPLIT_RK2B = True",
+     NotImplementedError, "SPLIT_RK2B"),
     ("NO_SUCH_KEY = 1", ValueError, "NO_SUCH_KEY"),
 ], ids=["epbl", "jackson", "varmix", "grid", "wind", "ale", "unknown"])
 def test_build_rejects_what_is_not_ported(run_dir, text, exc, match):
@@ -642,9 +645,9 @@ def test_step_mom_one_cycle_with_kpp_f32(run_dir, flowing):
 
 # the ids keep their names; neutral diffusion, the passivity, the cap, the
 # boundary-layer form of the tracer diffusion, the interface filter, the
-# porous barriers, the Zanna-Bolton closure, SPPT, SKEB and the harmonic
-# SAL are ported, so they hold the RK2b scheme, the wide-halo subcycle and
-# the HYBGEN coordinate, still to port
+# porous barriers, the Zanna-Bolton closure, SPPT, SKEB, the harmonic SAL
+# and the HYBGEN coordinate are ported, so they hold the RK2b scheme and
+# the wide-halo subcycle (the last beside HYBGEN), still to port
 @pytest.mark.parametrize("change,match", [
     pytest.param(lambda p: p.replace(dyn=p.dyn.replace(scheme="RK2B")),
                  "RK2B", id="khtr_passivity_coeff-1.0"),
@@ -652,7 +655,8 @@ def test_step_mom_one_cycle_with_kpp_f32(run_dir, flowing):
         bt=p.dyn.bt.replace(wide_halo=4))), "wide-halo",
         id="khtr_max-100.0"),
     pytest.param(lambda p: p.replace(ale=dataclasses.replace(
-        p.ale, mode="HYBGEN")), "HYBGEN", id="neutral_diffusion-True")])
+        p.ale, mode="HYBGEN"), dyn=p.dyn.replace(bt=p.dyn.bt.replace(
+            wide_halo=2))), "wide-halo", id="neutral_diffusion-True")])
 def test_step_mom_unported_tracer_diffusion_raises(small, change, match):
     _, ms = small
     with pytest.raises(NotImplementedError, match=match):

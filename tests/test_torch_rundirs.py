@@ -13,10 +13,12 @@ against the reference, on the CPU.
   totals) and 1e-9 (KE, APE), the restart fields to 1e-10 of max-abs,
   and MOM_parameter_doc.all with every key of the reference's at the
   same value and module.
-* An EQN_OF_STATE, REMAPPING_SCHEME or REGRIDDING_COORDINATE_MODE the
-  port lacks raises NotImplementedError at build time, and the CLI on
-  configs/spherical_gyre with such a value in its MOM_override writes no
-  file: one test per key.  DRHO_DT other than -0.2
+* An EQN_OF_STATE the port lacks raises NotImplementedError at build
+  time, and the CLI on configs/spherical_gyre with such a value in its
+  MOM_override writes no file; every REMAPPING_SCHEME and
+  REGRIDDING_COORDINATE_MODE of the reference is ported, and
+  spherical_gyre with each that the port used to refuse builds equal to
+  the reference's build and runs a CLI cycle: one test per key.  DRHO_DT other than -0.2
   outside the DOME inflow raises.
 * The catalog's Kd_BBL and Kd_interface on tc4 under a 0.3 m/s flow
   against the reference's catalog (float32, 1e-5 of max-abs).
@@ -196,6 +198,11 @@ def test_cli_two_cycles(name, port_cli):
 # that neither package has, stands for the key)
 REFUSALS = {
     "EQN_OF_STATE": ("NEMO",),
+}
+# every coordinate and remap scheme of the reference is ported, so no
+# value of these two keys is left to refuse: their tests keep their
+# names and hold spherical_gyre with each value the port refused before
+PORTED = {
     "REGRIDDING_COORDINATE_MODE": ("HYBGEN",),
     "REMAPPING_SCHEME": ("PPM_H6", "P3M_H4"),
 }
@@ -221,12 +228,42 @@ def test_unported_eos_refused_at_build(tmp_path):
     _refusal("EQN_OF_STATE", tmp_path)
 
 
+def _ported(key, tmp_path):
+    """spherical_gyre with each value of PORTED[key] in float32: the
+    port's build equal to the reference's to the bit; the CLI on a copy
+    with the first value for one cycle, every file written, mass kept
+    to 1e-6."""
+    from mom6_tpu.drivers.config_driver import \
+        build_model_from_params as ref_build
+    from mom6_tpu.framework.config import ParamFile as RefParamFile
+    for value in PORTED[key]:
+        text = f"{key} = {value}\n"
+        ref = ref_build(RefParamFile([_config("spherical_gyre")], text=text),
+                        dtype=jnp.float32)
+        rec = [interop.export(o) for o in (ref.grid, ref.vgrid, ref.state,
+                                           ref.params, ref.forcing)]
+        ms = _port_build("spherical_gyre", torch.float32, text=text)
+        _assert_same_build(ms, rec, torch.float32)
+        assert value in (ms.params.ale.mode, ms.params.ale.scheme)
+    d = os.path.join(str(tmp_path), "spherical_gyre")
+    shutil.copytree(os.path.join(REPO, "configs", "spherical_gyre"), d)
+    with open(os.path.join(d, "MOM_override"), "w") as f:
+        f.write(f"{key} = {PORTED[key][0]}\n")
+    solo.main([d, "--days", repr(1800.0 / 86400.0)], device="cpu")
+    for f in ("MOM.res.nc", "ocean.stats", "MOM_parameter_doc.all",
+              "ocean.cputime"):
+        assert os.path.exists(os.path.join(d, f)), f
+    ln = read_stats(os.path.join(d, "ocean.stats"))[-1]
+    assert all(np.isfinite(v) for v in ln.values())
+    assert abs(ln["dM_net"]) <= 1e-6 * ln["Mass"]
+
+
 def test_unported_coordinate_refused_at_build(tmp_path):
-    _refusal("REGRIDDING_COORDINATE_MODE", tmp_path)
+    _ported("REGRIDDING_COORDINATE_MODE", tmp_path)
 
 
 def test_unported_remapping_scheme_refused_at_build(tmp_path):
-    _refusal("REMAPPING_SCHEME", tmp_path)
+    _ported("REMAPPING_SCHEME", tmp_path)
 
 
 def test_drho_dt_outside_dome_only_minus_0p2():

@@ -431,14 +431,15 @@ def test_build_equals_reference_f64(name, ref64):
     # double diffusion and SKEB are ported: the case holds BT_WIDE_HALO,
     # still to port
     ("tc2", "BT_WIDE_HALO = 4\n", NotImplementedError, "BT_WIDE_HALO"),
-    ("nonbouss_basin", "REMAPPING_SCHEME = PPM_H6\n", NotImplementedError,
-     "REMAPPING_SCHEME"),
-    ("isomip", "REGRIDDING_COORDINATE_MODE = HYBGEN\n", NotImplementedError,
-     "REGRIDDING_COORDINATE_MODE"),
-    # the passivity, QG Leith and SPPT are ported: the case holds P3M_H4,
-    # still to port
-    ("tc1", "REMAPPING_SCHEME = P3M_H4\n", NotImplementedError,
-     "REMAPPING_SCHEME"),
+    # every remapping scheme and coordinate is ported: the three cases
+    # hold BT_WIDE_HALO and SPLIT_RK2B beside the scheme or coordinate
+    # each held before, still to port
+    ("nonbouss_basin", "REMAPPING_SCHEME = PPM_H6\nBT_WIDE_HALO = 2\n",
+     NotImplementedError, "BT_WIDE_HALO"),
+    ("isomip", "REGRIDDING_COORDINATE_MODE = HYBGEN\nSPLIT_RK2B = True\n",
+     NotImplementedError, "SPLIT_RK2B"),
+    ("tc1", "REMAPPING_SCHEME = P3M_H4\nBT_WIDE_HALO = 8\n",
+     NotImplementedError, "BT_WIDE_HALO"),
 ], ids=["ts_range-nk", "ice-profile", "tfreeze-form", "opacity",
         "double-diffusion", "remap-scheme", "coordinate", "passivity"])
 def test_unported_values_refused_at_build(name, text, exc, match):

@@ -514,9 +514,10 @@ def test_interop_rejects_unported_fields(part, field):
 # the ids keep their names; VarMix, the boundary-layer diffusion,
 # DIABATIC_FIRST, MEKE's backscatter, the porous barriers, the Zanna-Bolton
 # closure, the interface filter, the tidal forcing, SKEB, SPPT, the
-# harmonic SAL and the Stanley correction are ported, so they hold the
-# RK2b scheme, the wide-halo subcycle (fixed and AUTO), the HYBGEN
-# coordinate and the remapping schemes PPM_H6 and P3M_H4, still to port
+# harmonic SAL, the Stanley correction, the HYBGEN coordinate and the
+# remapping schemes PPM_H6 and P3M_H4 are ported, so they hold the RK2b
+# scheme and the wide-halo subcycle (fixed and AUTO), still to port (the
+# last three cases beside HYBGEN, PPM_H6 and P3M_H4)
 def _bt(**kw):
     return lambda p: p.replace(dyn=p.dyn.replace(bt=p.dyn.bt.replace(**kw)))
 
@@ -529,9 +530,12 @@ def _ale(**kw):
     pytest.param(lambda p: p.replace(dyn=p.dyn.replace(scheme="RK2B")),
                  "RK2B", id="varmix-1"),
     pytest.param(_bt(wide_halo=4), "wide-halo", id="meke-value1"),
-    pytest.param(_ale(mode="HYBGEN"), "HYBGEN", id="khtr_bl-100.0"),
-    pytest.param(_ale(scheme="PPM_H6"), "PPM_H6", id="diabatic_first-True"),
-    pytest.param(_ale(scheme="P3M_H4"), "P3M_H4", id="interface_filter-1"),
+    pytest.param(lambda p: _ale(mode="HYBGEN")(p).replace(
+        dyn=p.dyn.replace(scheme="RK2B")), "RK2B", id="khtr_bl-100.0"),
+    pytest.param(lambda p: _bt(wide_halo=8)(_ale(scheme="PPM_H6")(p)),
+                 "wide-halo", id="diabatic_first-True"),
+    pytest.param(lambda p: _bt(wide_halo=3)(_ale(scheme="P3M_H4")(p)),
+                 "wide-halo", id="interface_filter-1"),
     pytest.param(_bt(wide_halo=-1), "wide-halo", id="sppt-1"),
     pytest.param(_bt(wide_halo=2), "wide-halo", id="stanley_coeff-0.5")])
 def test_step_mom_unported_options_raise(gyre, change, match):

@@ -19,8 +19,11 @@ test_tc_ladder.py::TestTC1 and TestTC2, test_nonbouss_mode.py), and
 those of the coupled caps and what they reach (test_coupled_cap.py,
 test_nuopc_cap.py, test_coupler_waves.py, test_bgc.py,
 test_barotropic_parity.py::test_dynamic_psurf_damps_under_rigid_ice and
-test_aux_physics.py's brine plume and opacity), run through the PyTorch
-port.
+test_aux_physics.py's brine plume and opacity), and those of HYBGEN,
+the z-level initialisation, the horizontal regridding and the SSA with
+the ice-only driver (test_regrid_hybrid.py::test_hybgen_*,
+test_ale.py::TestZInit, test_horiz_regrid.py, test_ssa.py), run through
+the PyTorch port.
 
 Each gate builds its case through the port (the configuration's
 MOM_input, the test's parameter text, or the port's builders), runs it
@@ -86,7 +89,7 @@ from mom6_tpu_torch.tracers.vert_diff import tracer_vertdiff
 from mom6_tpu_torch.physics.waves import WaveParams, make_la_fn
 
 __all__ = ["GATES", "BATCHED", "CARD_ONLY", "COUPLED", "OPTIONS",
-           "LATERAL", "STOCH_TIDES", "run_gate"]
+           "LATERAL", "STOCH_TIDES", "HYBGEN_ICE", "run_gate"]
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -4093,6 +4096,560 @@ def skeb_divergence_free(device):
 
 
 # name -> gate, in the order of the reference's test files
+
+# --- HYBGEN with its unmixing, PPM_H6 and P3M_H4, TS_CONFIG = from_Z (its
+# z-level remap and the horizontal regridding), and the SSA shelf
+# dynamics with the ice-only driver (tests/test_regrid_hybrid.py::
+# test_hybgen_*, test_ale.py::TestZInit, test_horiz_regrid.py,
+# test_ssa.py) -------------------------------------------------------------
+
+# World Ocean Atlas 2018's 102 standard depths [m]: every 5 m to 100, 25 m
+# to 500, 50 m to 2000, 100 m to 5500
+WOA_DEPTHS = np.concatenate([np.arange(0.0, 100.1, 5.0),
+                             np.arange(125.0, 500.1, 25.0),
+                             np.arange(550.0, 2000.1, 50.0),
+                             np.arange(2100.0, 5500.1, 100.0)])
+# WOA's missing value (_FillValue)
+WOA_MISSING = 9.96921e36
+# HYCOM's minimum layer thicknesses of its global runs (blkdat.input's
+# dp00 = 3 m, dp00f = 1.18, dp00x = 450 m): the HYBGEN minimum z profile
+HYBGEN_DP00 = (3.0, 1.18, 450.0)
+
+
+def woa_z_edges(depths=WOA_DEPTHS):
+    """The level interfaces of data at ``depths``: 0, the midpoints, and
+    the last depth plus half the last spacing."""
+    d = np.asarray(depths, np.float64)
+    return np.concatenate([[0.0], 0.5 * (d[:-1] + d[1:]),
+                           [d[-1] + 0.5 * (d[-1] - d[-2])]])
+
+
+def _clim_profile(z, lat):
+    """The climatology's smooth T [degC] and S [psu] at depth ``z`` [m]
+    and latitude ``lat`` [degrees]: warm and salty subtropical surface
+    waters over a cold, fresher abyss."""
+    c2 = np.cos(np.deg2rad(lat)) ** 2
+    t_sfc, t_deep = -1.0 + 28.0 * c2, 0.5 + 1.5 * c2
+    s_sfc = 34.3 + 1.5 * np.exp(-((np.abs(lat) - 25.0) / 15.0) ** 2)
+    return (t_deep + (t_sfc - t_deep) * np.exp(-z / 700.0),
+            34.7 + (s_sfc - 34.7) * np.exp(-z / 400.0))
+
+
+def hybgen_override(nk, eos_name="WRIGHT"):
+    """The MOM_override of a HYBGEN run initialised from a z-level
+    climatology: ``nk`` potential-density targets referenced to 2000 dbar
+    from the climatology's lightest water (27 degC) to its densest, closer
+    together where it is dense; HYCOM's minimum z profile
+    (HYBGEN_DP00); the PPM_H6 remap; TS_CONFIG = from_Z reading
+    clim_z.nc (:func:`write_climatology`) with WOA's missing value."""
+    eos = get_eos(eos_name)
+    t = torch.tensor([27.0, 0.5], dtype=torch.float64)
+    s = torch.tensor([35.0, 34.7], dtype=torch.float64)
+    rho = (1035.0 + eos.density(t, s, torch.full_like(t, 2e7),
+                                rho_ref=1035.0)).numpy()
+    frac = ((np.arange(nk) + 0.5) / nk) ** 0.6
+    targets = rho[0] + (rho[1] - rho[0]) * frac
+    dp0, fac, cap = HYBGEN_DP00
+    dz = np.minimum(dp0 * fac ** np.arange(nk), cap)
+    return ("REGRIDDING_COORDINATE_MODE = HYBGEN\n"
+            "ALE_RHO_TARGETS = " + ", ".join(f"{r:.4f}" for r in targets)
+            + "\nALE_RESOLUTION = " + ", ".join(f"{d:.4f}" for d in dz)
+            + "\nREMAPPING_SCHEME = PPM_H6\nTS_CONFIG = from_Z\n"
+            "TEMP_SALT_Z_INIT_FILE = clim_z.nc\n"
+            f"Z_INIT_DATA_MISSING = {WOA_MISSING!r}\n")
+
+
+# chip_smoke.py's [hybgen] phase on configs/global_half_deg (32 layers)
+HYBGEN_OVERRIDE = hybgen_override(32)
+
+
+def write_climatology(path, G, seed, nlon=360, nlat=180, depths=WOA_DEPTHS,
+                      noise=True, land="nearest"):
+    """A z-level climatology of T and S on its own nlon x nlat grid of
+    cell centres (World Ocean Atlas 2018's 1-degree layout with its 102
+    depths by default) as a NetCDF file with lon, lat, z_edges, ptemp and
+    salt (float32), the smooth :func:`_clim_profile` plus (``noise``)
+    noise from ``seed``.  Its land is the model's: each cell centre takes
+    the land mask and the depth of the model's nearest T point (on the
+    sphere), or with ``land="deepest"`` the depth of the deepest model T
+    point inside its cell (the nearest's where none is), and a level is
+    missing (WOA_MISSING) on land and below that depth.  Returns the
+    missing share."""
+    from scipy.spatial import cKDTree
+    from mom6_tpu_torch.io.netcdf import NCWriter
+    rng = np.random.default_rng(seed)
+    lon = (np.arange(nlon) + 0.5) * (360.0 / nlon)
+    lat = -90.0 + (np.arange(nlat) + 0.5) * (180.0 / nlat)
+
+    def xyz(lo, la):
+        lo, la = np.deg2rad(lo), np.deg2rad(la)
+        return np.stack([np.cos(la) * np.cos(lo), np.cos(la) * np.sin(lo),
+                         np.sin(la)], axis=-1).reshape(-1, 3)
+    LON, LAT = np.meshgrid(lon, lat)
+    _, near = cKDTree(xyz(_np(G.geoLonT), _np(G.geoLatT))).query(
+        xyz(LON, LAT))
+    model = (_np(G.bathyT) * _np(G.mask2dT)).ravel()
+    depth = model[near].reshape(LON.shape)
+    if land == "deepest":
+        ic = np.floor(np.mod(_np(G.geoLonT).ravel(), 360.0)
+                      / (360.0 / nlon)).astype(int) % nlon
+        jc = np.clip(np.floor((_np(G.geoLatT).ravel() + 90.0)
+                              / (180.0 / nlat)).astype(int), 0, nlat - 1)
+        deep = np.full(LON.shape, -1.0)
+        np.maximum.at(deep, (jc, ic), model)
+        depth = np.where(deep >= 0.0, deep, depth)
+    z = np.asarray(depths, np.float64)[:, None, None]
+    T, S = _clim_profile(z, LAT[None])
+    if noise:
+        decay = np.exp(-z / 1000.0)
+        T = T + 0.1 * decay * rng.standard_normal(T.shape)
+        S = S + 0.02 * decay * rng.standard_normal(S.shape)
+    missing = z >= depth[None]
+    T = np.where(missing, WOA_MISSING, T).astype(np.float32)
+    S = np.where(missing, WOA_MISSING, S).astype(np.float32)
+    w = NCWriter(path)
+    w.write_static("lon", lon)
+    w.write_static("lat", lat)
+    w.write_static("z_edges", woa_z_edges(depths))
+    w.write_static("ptemp", T)
+    w.write_static("salt", S)
+    w.close()
+    return float(missing.mean())
+
+
+def hybgen_relaxes_toward_isopycnal(device):
+    """HYBGEN moves the interfaces qhybrlx = 0.5 of the way toward the RHO
+    coordinate's (2 m at the middle interface) and, iterated 20 times,
+    keeps the column sums (rtol 1e-5) and the interfaces in order (1e-3 m)
+    (test_regrid_hybrid.py::test_hybgen_relaxes_toward_isopycnal)."""
+    from mom6_tpu_torch.ale.regridding import build_hybgen_grid
+    G, GV, h, T, S, eos = _adapt_setup(device)
+    rho_t = GV.Rlay.cpu().numpy().tolist()
+    dz0 = np.full(ADAPT_NZ, 1.0)
+    with torch.inference_mode():
+        z_rho = _np(torch.cumsum(build_rho_grid(h, T, S, GV, eos, rho_t),
+                                 dim=0))
+        h1 = build_hybgen_grid(h, T, S, GV, eos, rho_t, dz0, qhybrlx=0.5)
+        hk = h
+        for _ in range(20):
+            hk = build_hybgen_grid(hk, T, S, GV, eos, rho_t, dz0,
+                                   qhybrlx=0.5)
+    z0 = _np(torch.cumsum(h, dim=0))
+    z1 = _np(torch.cumsum(h1, dim=0))
+    mid = ADAPT_NZ // 2
+    expect = z0[mid] + 0.5 * (z_rho[mid] - z0[mid])
+    err = float(np.abs(z1[mid] - expect).max())
+    assert err <= 2.0, err
+    zk = _np(torch.cumsum(hk, dim=0))
+    assert np.allclose(zk[-1], z0[-1], rtol=1e-5)
+    assert np.all(np.diff(zk, axis=0) > -1e-3)
+    return dict(quantity="middle interface - half-way depth [m]",
+                measured=err, analytic=0.0, error=err,
+                gate="<= 2 m; 20 calls keep the sums and the order")
+
+
+def hybgen_min_dz_profile_binds(device):
+    """With a minimum profile of the full depth's z layers every top layer
+    keeps at least its 100 m (less 1 m)
+    (test_regrid_hybrid.py::test_hybgen_min_dz_profile_binds)."""
+    from mom6_tpu_torch.ale.regridding import build_hybgen_grid
+    G, GV, h, T, S, eos = _adapt_setup(device)
+    rho_t = GV.Rlay.cpu().numpy().tolist()
+    dz0 = np.full(ADAPT_NZ, ADAPT_DEPTH / ADAPT_NZ)
+    with torch.inference_mode():
+        h1 = build_hybgen_grid(h, T, S, GV, eos, rho_t, dz0, qhybrlx=1.0)
+    top = float(h1[0].min())
+    assert top >= ADAPT_DEPTH / ADAPT_NZ - 1.0, top
+    return dict(quantity="thinnest top layer [m]", measured=top,
+                analytic=ADAPT_DEPTH / ADAPT_NZ,
+                error=top - ADAPT_DEPTH / ADAPT_NZ, gate=">= dz0 - 1 m")
+
+
+def hybgen_unmix_restores_targets_conservatively(device):
+    """Unmixing a layer 0.8 degC too warm keeps the column's heat (rtol
+    1e-6) and salt (1e-7) and moves its density toward its target
+    (test_regrid_hybrid.py::
+    test_hybgen_unmix_restores_targets_conservatively)."""
+    from mom6_tpu_torch.ale.regridding import hybgen_unmix
+    nz, p_ref = 6, 2e7
+    GV = build_layered_vgrid(nz, device=device)
+    eos = get_eos("LINEAR")
+    h = torch.full((nz, 1, 1), 200.0, device=device)
+    T_clean = torch.tensor(np.linspace(18.0, 4.0, nz), dtype=torch.float32,
+                           device=device)[:, None, None]
+    S = torch.full_like(T_clean, 35.0)
+    rho_t = GV.rho0 + eos.density(T_clean[:, 0, 0], S[:, 0, 0],
+                                  torch.full((nz,), p_ref, device=device),
+                                  rho_ref=GV.rho0)
+    T_pert = T_clean.clone()
+    T_pert[3] += 0.8
+    with torch.inference_mode():
+        T1, S1 = hybgen_unmix(T_pert, S, h, GV, eos, rho_t, k_fixed=2)
+    heat0, heat1 = float((T_pert * h).sum()), float((T1 * h).sum())
+    salt0, salt1 = float((S * h).sum()), float((S1 * h).sum())
+    assert abs(heat1 - heat0) <= 1e-6 * abs(heat0)
+    assert abs(salt1 - salt0) <= 1e-7 * abs(salt0)
+
+    def rho(t):
+        return float(GV.rho0 + eos.density(
+            torch.tensor(t), torch.tensor(35.0), torch.tensor(p_ref),
+            rho_ref=GV.rho0))
+    d0 = abs(rho(float(T_pert[3, 0, 0])) - float(rho_t[3]))
+    d1 = abs(rho(float(T1[3, 0, 0])) - float(rho_t[3]))
+    assert d1 < d0, (d0, d1)
+    return dict(quantity="layer 3's density off its target [kg m-3]",
+                measured=d1, analytic=0.0, error=d1,
+                gate=f"< {d0:.4g} before; heat, salt kept")
+
+
+def z_init_profile_onto_layers(device):
+    """A linear profile on ten 100 m levels onto five 200 m layers gives
+    the layers' means (rtol 1e-4) (test_ale.py::TestZInit::
+    test_profile_onto_layers)."""
+    from mom6_tpu_torch.grid.z_init import init_tracer_from_z
+    z_edges = np.arange(11) * 100.0
+    T_data = 20.0 - 0.01 * (z_edges[:-1] + 50.0)
+    h = torch.full((5, 4, 4), 200.0, device=device)
+    with torch.inference_mode():
+        T = _np(init_tracer_from_z(z_edges, T_data, h,
+                                   torch.full((4, 4), 1000.0,
+                                              device=device)))
+    want = 20.0 - 0.01 * (np.arange(5) * 200.0 + 100.0)
+    err = float(np.abs(T[:, 2, 2] / want - 1.0).max())
+    assert err <= 1e-4, err
+    return dict(quantity="relative error of the layer means",
+                measured=err, analytic=0.0, error=err, gate="<= 1e-4")
+
+
+def z_init_shallow_column_truncation(device):
+    """A 300 m column takes only the top 300 m of the data: T in
+    (16.9, 20] (test_ale.py::TestZInit::test_shallow_column_truncation)."""
+    from mom6_tpu_torch.grid.z_init import init_tracer_from_z
+    z_edges = np.arange(11) * 100.0
+    T_data = 20.0 - 0.01 * (z_edges[:-1] + 50.0)
+    h = torch.full((5, 2, 2), 60.0, device=device)
+    with torch.inference_mode():
+        T = _np(init_tracer_from_z(z_edges, T_data, h,
+                                   torch.full((2, 2), 300.0,
+                                              device=device)))
+    assert T.min() > 16.9 and T.max() <= 20.0
+    return dict(quantity="min T [degC]", measured=float(T.min()),
+                analytic=17.0, error=float(T.min()) - 17.0,
+                gate="(16.9, 20]")
+
+
+def bilinear_exact_for_linear_field(device):
+    """Bilinear interpolation of 2 lon + 3 lat reproduces it (rtol 1e-12)
+    (test_horiz_regrid.py::TestBilinear::test_exact_for_linear_field)."""
+    from mom6_tpu_torch.grid.horiz_regrid import horiz_interp_bilinear
+    lon = np.linspace(0.0, 90.0, 10)
+    lat = np.linspace(-30.0, 30.0, 8)
+    LON, LAT = np.meshgrid(lon, lat)
+    DLON, DLAT = np.meshgrid(np.linspace(5.0, 85.0, 13),
+                             np.linspace(-25.0, 25.0, 11))
+    out, ok = horiz_interp_bilinear(lon, lat, 2.0 * LON + 3.0 * LAT, DLON,
+                                    DLAT, periodic_lon=0.0)
+    want = 2.0 * DLON + 3.0 * DLAT
+    err = float(np.abs(out / want - 1.0).max())
+    assert ok.all() and err <= 1e-12, err
+    return dict(quantity="relative error", measured=err, analytic=0.0,
+                error=err, gate="<= 1e-12")
+
+
+def bilinear_periodic_longitude_seam(device):
+    """A zonal cosine on 10-degree centres interpolates across 360 -> 0
+    within 5e-3 (TestBilinear::test_periodic_longitude_seam)."""
+    from mom6_tpu_torch.grid.horiz_regrid import horiz_interp_bilinear
+    lon = np.arange(0.0, 360.0, 10.0)
+    lat = np.linspace(-10.0, 10.0, 5)
+    LON, _ = np.meshgrid(lon, lat)
+    DLON = np.full((3, 4), 355.0) + np.arange(4) * 2.5
+    out, ok = horiz_interp_bilinear(lon, lat, np.cos(np.deg2rad(LON)), DLON,
+                                    np.zeros((3, 4)), periodic_lon=360.0)
+    err = float(np.abs(out - np.cos(np.deg2rad(DLON))).max())
+    assert ok.all() and err <= 5e-3, err
+    return dict(quantity="max error", measured=err, analytic=0.0, error=err,
+                gate="<= 5e-3")
+
+
+def bilinear_masked_source_downweights(device):
+    """A masked source point (poisoned with 999) gets no weight: 5 next to
+    it and away from it (TestBilinear::test_masked_source_downweights)."""
+    from mom6_tpu_torch.grid.horiz_regrid import horiz_interp_bilinear
+    src = np.full((8, 10), 5.0)
+    good = np.ones((8, 10), bool)
+    good[4, 5] = False
+    src[4, 5] = 999.0
+    DLON, DLAT = np.meshgrid(np.array([5.2, 2.0]), np.array([4.3]))
+    out, _ = horiz_interp_bilinear(np.arange(10.0), np.arange(8.0), src,
+                                   DLON, DLAT, good=good, periodic_lon=0.0)
+    err = float(np.abs(out / 5.0 - 1.0).max())
+    assert err <= 1e-12, err
+    return dict(quantity="relative error", measured=err, analytic=0.0,
+                error=err, gate="<= 1e-12")
+
+
+def fill_observed_pinned_holes_harmonic(device):
+    """A linear field with a 4x4 hole: the observed cells stay to the bit
+    and the fill recovers the (harmonic) field within 1e-2
+    (TestFillMissing::test_observed_cells_pinned_and_holes_harmonic)."""
+    from mom6_tpu_torch.grid.horiz_regrid import fill_missing
+    Y, X = np.mgrid[0:12, 0:14].astype(float)
+    truth = 1.0 + 0.5 * X + 0.25 * Y
+    good = np.ones((12, 14), bool)
+    good[4:8, 5:9] = False
+    out = fill_missing(np.where(good, truth, 0.0), good,
+                       np.ones((12, 14), bool), acrit=1e-10)
+    assert np.array_equal(out[good], truth[good])
+    err = float(np.abs(out[~good] - truth[~good]).max())
+    assert err <= 1e-2, err
+    return dict(quantity="max error in the hole", measured=err,
+                analytic=0.0, error=err, gate="<= 1e-2, observed exact")
+
+
+def fill_prev_level_seeds_deep_holes(device):
+    """A level with no data takes the level above (within 1e-12)
+    (TestFillMissing::test_prev_level_seeds_deep_holes)."""
+    from mom6_tpu_torch.grid.horiz_regrid import fill_missing
+    out = fill_missing(np.zeros((6, 6)), np.zeros((6, 6), bool),
+                       np.ones((6, 6), bool), prev=np.full((6, 6), 3.7))
+    err = float(np.abs(out - 3.7).max())
+    assert err <= 1e-12, err
+    return dict(quantity="max |out - 3.7|", measured=err, analytic=0.0,
+                error=err, gate="<= 1e-12")
+
+
+def fill_isolated_basin_gets_global_mean(device):
+    """A wet cell walled off from every datum takes the mean of the data
+    (TestFillMissing::test_isolated_basin_gets_global_mean)."""
+    from mom6_tpu_torch.grid.horiz_regrid import fill_missing
+    wet = np.zeros((8, 8), bool)
+    wet[1:4, 1:4] = True
+    wet[6, 6] = True
+    good = np.zeros((8, 8), bool)
+    good[1:4, 1:4] = True
+    out = fill_missing(np.where(good, 2.0, 0.0), good, wet)
+    err = abs(float(out[6, 6]) - 2.0)
+    assert err <= 2e-6, err
+    return dict(quantity="isolated cell - 2", measured=err, analytic=0.0,
+                error=err, gate="pytest.approx(2.0)")
+
+
+def extrap_levels_continue_downward(device):
+    """An unobserved deep level continues the level above (1e-10), the
+    top level interpolates its linear field (rtol 1e-6)
+    (TestFillMissing::test_full_pipeline_levels_continue_downward)."""
+    from mom6_tpu_torch.grid.horiz_regrid import \
+        horiz_interp_and_extrap_tracer
+    lon, lat = np.linspace(0, 100, 20), np.linspace(0, 80, 16)
+    LON, _ = np.meshgrid(lon, lat)
+    lvl0 = 15.0 + 0.01 * LON
+    data = np.stack([lvl0, np.full_like(lvl0, np.nan)])
+    DLON, DLAT = np.meshgrid(np.linspace(10, 90, 9), np.linspace(10, 70, 7))
+    out = horiz_interp_and_extrap_tracer(lon, lat, data,
+                                         np.ones(DLON.shape, bool), DLON,
+                                         DLAT, periodic_lon=0.0)
+    err = float(np.abs(out[0] / (15.0 + 0.01 * DLON) - 1.0).max())
+    err1 = float(np.abs(out[1] - out[0]).max())
+    assert err <= 1e-6 and err1 <= 1e-10, (err, err1)
+    return dict(quantity="top level relative error", measured=err,
+                analytic=0.0, error=err, gate="<= 1e-6; deep level "
+                f"{err1:.1e} off the top (<= 1e-10)")
+
+
+def config_from_z_with_off_grid_climatology(device):
+    """TS_CONFIG = from_Z with a 6x5 climatology on its own grid with a NaN
+    hole: every wet cell finite, T in [3.9, 16.1], S in [33.9, 35.1], warm
+    and fresh on top (TestFromZOffGrid::
+    test_config_from_z_with_off_grid_climatology)."""
+    from mom6_tpu_torch.io.netcdf import NCWriter
+    lon, lat = np.linspace(0.0, 500.0, 6), np.linspace(0.0, 400.0, 5)
+    LON, LAT = np.meshgrid(lon, lat)
+    T = np.stack([14.0 + 0.004 * LON, 8.0 + 0.002 * LAT,
+                  np.full_like(LON, 4.0)])
+    S = np.stack([np.full_like(LON, 34.0), np.full_like(LON, 34.6),
+                  np.full_like(LON, 35.0)])
+    T[:, 2, 3] = np.nan
+    S[:, 2, 3] = np.nan
+    d = tempfile.mkdtemp(prefix="from_z_")
+    atexit.register(shutil.rmtree, d, True)
+    w = NCWriter(os.path.join(d, "clim.nc"))
+    w.write_static("lon", lon)
+    w.write_static("lat", lat)
+    w.write_static("z_edges", np.array([0.0, 200.0, 600.0, 1000.0]))
+    w.write_static("ptemp", T)
+    w.write_static("salt", S)
+    w.close()
+    ms = build(device, text=f"""
+NIGLOBAL = 12
+NJGLOBAL = 10
+NK = 4
+LENLON = 500.0
+LENLAT = 400.0
+MAXIMUM_DEPTH = 1000.0
+DT = 900.0
+ENABLE_THERMODYNAMICS = True
+TS_CONFIG = from_Z
+TEMP_SALT_Z_INIT_FILE = clim.nc
+INPUTDIR = {d}
+""")
+    wet = _np(ms.grid.mask2dT) > 0.5
+    Tm, Sm = _np(ms.state.T)[:, wet], _np(ms.state.S)[:, wet]
+    assert np.isfinite(Tm).all() and np.isfinite(Sm).all()
+    assert Tm.min() >= 3.9 and Tm.max() <= 16.1
+    assert Sm.min() >= 33.9 and Sm.max() <= 35.1
+    assert Tm[0].mean() > Tm[-1].mean() and Sm[0].mean() < Sm[-1].mean()
+    return dict(quantity="wet T range [degC]", measured=float(Tm.max()),
+                analytic=16.0, error=float(Tm.max()) - 16.0,
+                gate="T in [3.9, 16.1], S in [33.9, 35.1], stratified",
+                t_min=float(Tm.min()))
+
+
+SSA_NX, SSA_NY = 24, 16
+
+
+def _ssa_grid(device, dtype=torch.float32):
+    """test_ssa.py's grid: 24x16 cells of 10 km, reentrant in y."""
+    return build_cartesian_grid(SSA_NX, SSA_NY, 240.0, 160.0,
+                                max_depth=1000.0, reentrant_y=True,
+                                dtype=dtype, device=device)
+
+
+def _slab(device, H):
+    """A slab of thickness H with an ice front 5 cells from the east."""
+    h = torch.full((SSA_NY, SSA_NX), H, device=device)
+    h[:, SSA_NX - 5:] = 0.0
+    return h
+
+
+def ssa_operator_symmetric(device):
+    """The SSA operator is symmetric (1e-5 relative) and positive
+    semi-definite (test_ssa.py::test_operator_symmetric)."""
+    from mom6_tpu_torch.physics.ice_shelf_dynamics import _apply_ssa
+    G = _ssa_grid(device)
+    rng = np.random.RandomState(0)
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
+    nu_h = t(1e14 * (1.0 + rng.rand(SSA_NY, SSA_NX)))
+    ones = torch.ones((SSA_NY, SSA_NX), device=device)
+    zero = torch.zeros_like(ones)
+
+    def A(x):
+        return torch.stack(_apply_ssa(x[0], x[1], nu_h, G, ones, G.areaT,
+                                      zero))
+    x = t(rng.randn(2, SSA_NY, SSA_NX) * 1e-6)
+    y = t(rng.randn(2, SSA_NY, SSA_NX) * 1e-6)
+    with torch.inference_mode():
+        xay, yax = float((x * A(y)).sum()), float((y * A(x)).sum())
+        xax = float((x * A(x)).sum())
+    asym = abs(xay - yax) / (abs(xay) + abs(yax) + 1e-30)
+    assert asym < 1e-5 and xax >= 0.0, (asym, xax)
+    return dict(quantity="|<x,Ay> - <y,Ax>| / (|.| + |.|)", measured=asym,
+                analytic=0.0, error=asym, gate="< 1e-5, <x,Ax> >= 0")
+
+
+def ssa_van_der_veen_spreading(device):
+    """A freely spreading slab of 300 m: the interior strain rate within
+    25% of A (rho_i g' H / 4)^3 and v under a fifth of max |u|
+    (test_ssa.py::test_van_der_veen_spreading)."""
+    from mom6_tpu_torch.physics.ice_shelf_dynamics import (SSAParams,
+                                                           ssa_solve)
+    G = _ssa_grid(device)
+    p = SSAParams(n_picard=12, n_cg=100)
+    h = _slab(device, 300.0)
+    with torch.inference_mode():
+        u, v = ssa_solve(h, G, p, mask_shelf=(h > 1.0).float())
+    ux = np.diff(_np(u), axis=1) / 10e3
+    ux_mid = float(ux[SSA_NY // 2, 4:SSA_NX - 10].mean())
+    gprime = p.rho_ice * p.g * (1.0 - p.rho_ice / p.rho_water)
+    want = p.glen_a * (gprime * 300.0 / 4.0) ** 3
+    err = abs(ux_mid - want) / want
+    assert err < 0.25, (ux_mid, want)
+    assert np.abs(_np(v)).max() < 0.2 * np.abs(_np(u)).max()
+    return dict(quantity="du/dx in the interior [s-1]", measured=ux_mid,
+                analytic=want, error=err, gate="< 25%, |v| < |u|/5")
+
+
+def ssa_thicker_flows_faster(device):
+    """400 m of ice flows more than 4 times as fast as 200 m in the
+    interior (test_ssa.py::test_thicker_flows_faster)."""
+    from mom6_tpu_torch.physics.ice_shelf_dynamics import (SSAParams,
+                                                           ssa_solve)
+    G = _ssa_grid(device)
+    p = SSAParams(n_picard=6, n_cg=60)
+    us = []
+    for H in (200.0, 400.0):
+        with torch.inference_mode():
+            u, _ = ssa_solve(_slab(device, H), G, p)
+        us.append(float(u[:, 2:SSA_NX - 8].abs().max()))
+    assert us[1] > 4.0 * us[0], us
+    return dict(quantity="max |u| ratio 400 m / 200 m",
+                measured=us[1] / us[0], analytic=8.0,
+                error=us[1] / us[0] - 8.0, gate="> 4")
+
+
+def ssa_advect_conserves_and_bounds(device):
+    """Five 30-day upwind steps of a half-covered domain at 100 m/yr: h >=
+    0, the mass kept to 1e-5 and the front advanced
+    (test_ssa.py::test_advect_conserves_and_bounds)."""
+    from mom6_tpu_torch.physics.ice_shelf_dynamics import \
+        ice_shelf_advect_thickness
+    G = _ssa_grid(device)
+    h = torch.full((SSA_NY, SSA_NX), 300.0, device=device)
+    h[:, SSA_NX // 2:] = 0.0
+    u = torch.full_like(h, 100.0 / 3.15e7)
+    v = torch.zeros_like(u)
+    h1 = h
+    with torch.inference_mode():
+        for _ in range(5):
+            h1 = ice_shelf_advect_thickness(h1, u, v, 86400.0 * 30, G,
+                                            (h1 > 1.0).float())
+    m0 = float((h * G.areaT).sum())
+    m1 = float((h1 * G.areaT).sum())
+    err = abs(m1 - m0) / m0
+    assert float(h1.min()) >= 0.0 and err < 1e-5, err
+    assert float(h1[SSA_NY // 2, SSA_NX // 2]) > 0.0
+    return dict(quantity="relative mass change", measured=err, analytic=0.0,
+                error=err, gate="< 1e-5, h >= 0, the front advanced")
+
+
+def ice_solo_driver(device):
+    """The ice-only driver on 16x16 cells for 2 days writes ice.stats and
+    ICE.res.nc, h finite and the wedge flowing
+    (test_ssa.py::test_ice_solo_driver)."""
+    from mom6_tpu_torch.drivers import ice_solo
+    from mom6_tpu_torch.io.netcdf import read_nc
+    d = tempfile.mkdtemp(prefix="ice_solo_")
+    atexit.register(shutil.rmtree, d, True)
+    with open(os.path.join(d, "MOM_input"), "w") as f:
+        f.write("NIGLOBAL = 16\nNJGLOBAL = 16\nLENLON = 80.0\n"
+                "LENLAT = 80.0\nDT = 43200.0\nDAYMAX = 2.0\n")
+    ice_solo.main([d], device=device)
+    assert os.path.exists(os.path.join(d, "ice.stats"))
+    res = read_nc(os.path.join(d, "ICE.res.nc"))
+    assert np.isfinite(res["h_ice"]).all()
+    sp = float(np.hypot(res["u_ice"], res["v_ice"]).max())
+    assert sp > 0.0
+    return dict(quantity="max speed [m/s]", measured=sp, analytic=0.0,
+                error=sp, gate="> 0, files written, h finite")
+
+
+def ssa_fold_grid_rejected(device):
+    """ssa_solve on a tripolar grid raises ValueError naming the fold
+    (test_ssa.py::test_fold_grid_rejected)."""
+    from mom6_tpu_torch.physics.ice_shelf_dynamics import (SSAParams,
+                                                           ssa_solve)
+    G = build_cartesian_grid(8, 8, 100.0, 100.0, max_depth=1000.0,
+                             device=device)
+    G = dataclasses.replace(G, fold_north=True)
+    try:
+        ssa_solve(torch.full((8, 8), 200.0, device=device), G, SSAParams())
+    except ValueError as e:
+        assert "fold" in str(e)
+        return dict(quantity="raises ValueError('...fold...')", measured=1.0,
+                    analytic=1.0, error=0.0, gate="raises")
+    raise AssertionError("ssa_solve accepted a fold grid")
+
+
 GATES = {
     "external_gwave_phase_speed": external_gwave,
     "internal_wave_speed": internal_wave,
@@ -4275,6 +4832,29 @@ GATES = {
     "ar1_pattern_statistics": ar1_pattern_statistics,
     "sppt_perturbs_tendency": sppt_perturbs_tendency,
     "skeb_divergence_free": skeb_divergence_free,
+    "hybgen_relaxes_toward_isopycnal": hybgen_relaxes_toward_isopycnal,
+    "hybgen_min_dz_profile_binds": hybgen_min_dz_profile_binds,
+    "hybgen_unmix_restores_targets_conservatively":
+        hybgen_unmix_restores_targets_conservatively,
+    "z_init_profile_onto_layers": z_init_profile_onto_layers,
+    "z_init_shallow_column_truncation": z_init_shallow_column_truncation,
+    "bilinear_exact_for_linear_field": bilinear_exact_for_linear_field,
+    "bilinear_periodic_longitude_seam": bilinear_periodic_longitude_seam,
+    "bilinear_masked_source_downweights": bilinear_masked_source_downweights,
+    "fill_observed_pinned_holes_harmonic":
+        fill_observed_pinned_holes_harmonic,
+    "fill_prev_level_seeds_deep_holes": fill_prev_level_seeds_deep_holes,
+    "fill_isolated_basin_gets_global_mean":
+        fill_isolated_basin_gets_global_mean,
+    "extrap_levels_continue_downward": extrap_levels_continue_downward,
+    "config_from_z_with_off_grid_climatology":
+        config_from_z_with_off_grid_climatology,
+    "ssa_operator_symmetric": ssa_operator_symmetric,
+    "ssa_van_der_veen_spreading": ssa_van_der_veen_spreading,
+    "ssa_thicker_flows_faster": ssa_thicker_flows_faster,
+    "ssa_advect_conserves_and_bounds": ssa_advect_conserves_and_bounds,
+    "ice_solo_driver": ice_solo_driver,
+    "ssa_fold_grid_rejected": ssa_fold_grid_rejected,
 }
 
 # the gates of the coupled caps and what they reach (the run of
@@ -4297,7 +4877,13 @@ LATERAL = tuple(list(GATES)[list(GATES).index(
 # equations of state, SPPT and SKEB (the run of
 # tests/test_torch_stoch_tides.py)
 STOCH_TIDES = tuple(list(GATES)[list(GATES).index(
-    "equilibrium_tide_drives_flow"):])
+    "equilibrium_tide_drives_flow"):list(GATES).index(
+    "hybgen_relaxes_toward_isopycnal")])
+
+# the gates of HYBGEN, z_init, the horizontal regridding and the SSA with
+# the ice-only driver (the run of tests/test_torch_hybgen_ice.py)
+HYBGEN_ICE = tuple(list(GATES)[list(GATES).index(
+    "hybgen_relaxes_toward_isopycnal"):])
 
 # the gate the reference marks slow: the card runs it, the CPU tests not
 CARD_ONLY = ("nonbouss_basin_config_runs",)
