@@ -9,6 +9,7 @@
     python3 chip_smoke.py --stoch
     python3 chip_smoke.py --hybgen
     python3 chip_smoke.py --rk2b-oda
+    python3 chip_smoke.py --mesh
     python3 chip_smoke.py --gate NAME
 
 With ``--kernels`` only phases 1-3 run and the kernels' times are printed
@@ -23,13 +24,13 @@ check and phase 17 only.  ``--lateral`` runs phases 1 and 2, the flux checks wit
 a per-layer face of phase 3 and phase 18 only.  ``--stoch`` runs phases
 1 and 2 and phase 19 only.  ``--hybgen`` runs phases 1 and 2 and phases
 20 and 21 only.  ``--rk2b-oda`` runs phases 1 and 2 and phases 22 and 23
-only.  ``--gate NAME``
+only.  ``--mesh`` runs phases 1 and 2 and phase 24 only.  ``--gate NAME``
 runs one physics gate of tests/torch_gates.py on the card and prints its
 record and launch counts as one JSON line (phase 10 starts these).
 
 Phases (each prints its own lines; any failure raises and exits non-zero),
 run in the order 1-4, 6-8, the first half of 12, 13, 14, 15, 16, 17, 18,
-the first part of 19, 20-23, then 5, 9, 11, the rest of 12 and of 19
+the first part of 19, 20-24, then 5, 9, 11, the rest of 12 and of 19
 while the
 gates of phase 10 run in processes of their own (nothing timed runs
 beside the gates):
@@ -350,7 +351,24 @@ beside the gates):
    of M2, K1, S2 and O1 and a filter bank on 96 hourly samples of the
    truth's SSH plus known tidal maps, the maps recovered, an
    accumulate's time, card against CPU;
-24. a JSON line of the kernels (each with its row at every shape it was
+24. ``[mesh]``: configs/global_half_deg (720x400x32, f32) for one thermo
+   cycle on the ranks of parallel/mesh.py: four gloo ranks on cuda:0
+   (processes of their own) on the 2x2 mesh and two on the 1x2 mesh,
+   BT_WIDE_HALO AUTO on the 2x2 mesh, and this process as one NCCL
+   rank: each cycle's gathered h, u, v, T, S and ocean.stats equal the
+   plain one-rank cycle's to the bit; wall ms a cycle, exchanges and
+   bytes a cycle, launches a rank and what the card did for 1, 2 and 4
+   ranks (NVML's sampled utilization.gpu in a whole run; with
+   ``--mesh`` the profiler's device ms of every rank and the card's
+   idle share of the profiled cycle), the wide halo's exchanges against
+   the dense path's; the kernels' tile forms captured from the 2x2
+   cycle (the x edges and both fluxes on halo-padded tiles, the y edges'
+   HALO form with and without the fold image row, the Thomas solve and
+   the remap at their tile shapes) against their plain versions, 0
+   ulps, timed with their bounds (and their device ms with ``--mesh``);
+   the ensemble of four double-gyre members, one a rank, equal to
+   ensemble_step in one process;
+25. a JSON line of the kernels (each with its row at every shape it was
    checked at), then the result line.
 
 Long output (the ptxas report, the profiler tables) goes to
@@ -516,7 +534,8 @@ POROUS_WRAP_SHAPE = (10, 8, 64)
 ROW_SHAPE = {"ppm_edges_y": (32, 280, 360), "ppm_flux_y": (32, 280, 360)}
 # ... and the path whose launch count it carries
 ROW_PATH = {"ppm_edges_y": "full_physics", "ppm_flux_y": "full_physics",
-            "remap_npoly5": "rundir_hycom_basin"}
+            "remap_npoly5": "rundir_hycom_basin",
+            "ppm_edges_y_halo": "mesh"}
 FOLD_CAP = dict(nx=45, ny_reg=20, ny_cap=13)       # an odd nx; (7, 33, 45)
 # launches per baroclinic step of the double gyre and per thermo cycle of
 # the full-physics case, the OM4 tile and tracer_batch (2 baroclinic
@@ -524,16 +543,19 @@ FOLD_CAP = dict(nx=45, ny_reg=20, ny_cap=13)       # an odd nx; (7, 33, 45)
 # the cell fields, u, v)
 PER_STEP = {"tridiag": 6, "ppm_edges_x": 3, "ppm_edges_y": 3,
             "ppm_flux_x": 9, "ppm_flux_y": 9, "ppm_edges_y_fold": 0,
-            "ppm_flux_y_fold": 0, "remap": 0, "remap_npoly5": 0}
+            "ppm_flux_y_fold": 0, "remap": 0, "remap_npoly5": 0,
+            "ppm_edges_y_halo": 0}
 PER_CYCLE = {"tridiag": 13, "ppm_edges_x": 6, "ppm_edges_y": 6,
              "ppm_flux_x": 18, "ppm_flux_y": 18, "ppm_edges_y_fold": 0,
-             "ppm_flux_y_fold": 0, "remap": 3, "remap_npoly5": 0}
+             "ppm_flux_y_fold": 0, "remap": 3, "remap_npoly5": 0,
+             "ppm_edges_y_halo": 0}
 # one baroclinic step of a tripolar configuration (its y passes cross the
 # fold), and what a thermo cycle adds: the diabatic column solve and the
 # remaps of the cell fields, u and v
 PER_FOLD_STEP = {"tridiag": 6, "ppm_edges_x": 3, "ppm_edges_y": 0,
                  "ppm_flux_x": 9, "ppm_flux_y": 0, "ppm_edges_y_fold": 3,
-                 "ppm_flux_y_fold": 9, "remap": 0, "remap_npoly5": 0}
+                 "ppm_flux_y_fold": 9, "remap": 0, "remap_npoly5": 0,
+                 "ppm_edges_y_halo": 0}
 PER_THERMO = {"tridiag": 1, "remap": 3}
 
 
@@ -690,6 +712,8 @@ META = {
 META["remap_npoly5"] = META["remap"]
 META["ppm_edges_y_fold"] = META["ppm_edges_y"]
 META["ppm_flux_y_fold"] = META["ppm_flux_y"]
+# the y edges' HALO form on a mesh tile ([mesh])
+META["ppm_edges_y_halo"] = META["ppm_edges_y"]
 # kernel against plain version on the card: the same operations in the
 # same order (nvcc --fmad=false), so every kernel must be bitwise equal to
 # its plain version (0 ulps)
@@ -713,6 +737,11 @@ LIMITERS = (("pos", False, False), ("cw84", True, False),
 
 def log(msg):
     print(msg, flush=True)
+
+
+# repetitions of a plain version's timing (a reference beside the kernel's
+# 20; a plain remap at 720x400x32 takes 20-55 ms a call)
+PLAIN_REPS = 5
 
 
 def median_ms(fn, reps=20, warm=3):
@@ -945,7 +974,8 @@ def _check_tridiag_ppm(shape, dev, results, reentrant_y=False):
     ms = median_ms(lambda: solvers.tridiag_solve(a, b, c, d))
     d_ms = device_ms(lambda: solvers.tridiag_solve(a, b, c, d),
                      "thomas_kernel")
-    pms = median_ms(lambda: solvers.tridiag_solve_plain(a, b, c, d))
+    pms = median_ms(lambda: solvers.tridiag_solve_plain(a, b, c, d),
+                    PLAIN_REPS, warm=1)
     row = _kernel_row(float((x_k - x_p).abs().max()), ms, d_ms, pms,
                       4 * 5 * n, FLOPS_PER_POINT["tridiag"] * n, shape)
     log(f"[kernel] tridiag {shape}: max rel err {err:.3e}, max ulps {ulps} "
@@ -1008,7 +1038,8 @@ def _check_edges(label, shape, kernel, plain, h):
                               (hr_k - hr_p).abs().max())))
     ms = median_ms(lambda: kernel(False, False))
     d_ms = device_ms(lambda: kernel(False, False), "ppm_edges_kernel")
-    pms = median_ms(lambda: plain(False, False))
+    pms = median_ms(lambda: plain(False, False),
+                    PLAIN_REPS, warm=1)
     f_ms = device_ms(lambda: torch.frexp(h), "")
     row = _kernel_row(max(errs), ms, d_ms, pms, 4 * (3 * n + plane),
                       FLOPS_PER_POINT["ppm_edges"] * n, shape)
@@ -1044,7 +1075,8 @@ def _check_flux(label, shape, kernel, plain, dw, rem, face3d=False):
                               (f_k[1] - f_p[1]).abs().max())))
     ms = median_ms(lambda: kernel(dw=dw, rem=rem))
     d_ms = device_ms(lambda: kernel(dw=dw, rem=rem), "ppm_flux_kernel")
-    pms = median_ms(lambda: plain(dw, rem))
+    pms = median_ms(lambda: plain(dw, rem),
+                    PLAIN_REPS, warm=1)
     nbytes = 4 * ((8 * n + 3 * plane) if face3d else (7 * n + 4 * plane))
     row = _kernel_row(max(errs), ms, d_ms, pms, nbytes,
                       FLOPS_PER_POINT["ppm_flux"] * n, shape)
@@ -1083,7 +1115,8 @@ def _check_tridiag_wave(shape, dev):
     ms = median_ms(lambda: solvers.tridiag_solve(a, b, c, rhs))
     d_ms = device_ms(lambda: solvers.tridiag_solve(a, b, c, rhs),
                      "thomas_kernel")
-    pms = median_ms(lambda: solvers.tridiag_solve_plain(a, b, c, rhs))
+    pms = median_ms(lambda: solvers.tridiag_solve_plain(a, b, c, rhs),
+                    PLAIN_REPS, warm=1)
     b_ms, b_by = bound(4 * 5 * n, FLOPS_PER_POINT["tridiag"] * n)
     log(f"[kernel] tridiag as wave_speed calls it, (nz-1) = {shape}: float64 "
         f"and float32 bitwise equal to the plain version; kernel {ms:.4f} "
@@ -1246,7 +1279,8 @@ def _check_tridiag_adaptive(dev):
     ms_ = median_ms(lambda: solvers.tridiag_solve(a, b, c, d))
     d_ms = device_ms(lambda: solvers.tridiag_solve(a, b, c, d),
                      "thomas_kernel")
-    pms = median_ms(lambda: solvers.tridiag_solve_plain(a, b, c, d))
+    pms = median_ms(lambda: solvers.tridiag_solve_plain(a, b, c, d),
+                    PLAIN_REPS, warm=1)
     b_ms, b_by = bound(4 * 5 * n, FLOPS_PER_POINT["tridiag"] * n)
     log(f"[kernel] tridiag as the ADAPTIVE coordinate calls it on "
         f"spherical_gyre, {shape}: float64 and float32 bitwise equal to "
@@ -1583,7 +1617,8 @@ def _check_tridiag_captured(dev):
         ms_ = median_ms(lambda: solvers.tridiag_solve(a, b, c, d))
         d_ms = device_ms(lambda: solvers.tridiag_solve(a, b, c, d),
                          "thomas_kernel")
-        pms = median_ms(lambda: solvers.tridiag_solve_plain(a, b, c, d))
+        pms = median_ms(lambda: solvers.tridiag_solve_plain(a, b, c, d),
+                    PLAIN_REPS, warm=1)
         log(f"[kernel] tridiag as {form} calls it, {shape}, "
             f"{len(seen)} solves a call: float64 and float32 bitwise equal "
             f"to the plain version; kernel {ms_:.4f} ms ({d_ms:.4f} ms on "
@@ -4767,7 +4802,7 @@ def _post_breakdown(ms, d):
             nz_sigma=GV.nz, areaT=G.areaT.cpu().numpy(), device=st.h.device)
         solo_mod._post_table_diags(dm, st, G, GV, p, f, ke_fn, tend_fn)
 
-    def secs(fn, n=2):
+    def secs(fn, n=1):
         fn()
         torch.cuda.synchronize()
         out = []
@@ -4806,7 +4841,7 @@ def _post_breakdown(ms, d):
     log(f"[table] one post at {GV.nz}x{G.ny}x{G.nx} in this process, on "
         f"the state after the CLI's day: launches {counts} (= "
         f"PER_TABLE_POST); host ms with the device synchronised, the "
-        f"parts two calls each after a warm one: " + "; ".join(
+        f"parts one call each after a warm one: " + "; ".join(
             f"{k} {', '.join(f'{v:.1f}' for v in vs)}"
             for k, vs in parts.items()))
     return counts, parts
@@ -5100,17 +5135,26 @@ GATE_ORDER = ("kpp_convective_deepening",
 # the gates of neutral diffusion, ADAPTIVE, the internal tides, the tidal
 # mixing, the wave drag and the spherical gyre, of the coupled caps, of
 # the step's shared options and of the lateral options: each a second or
-# less on the card, so they run GATE_BATCH to a process (10 since the
-# lateral options' 12 joined: no more processes than before, 9)
-GATE_BATCH = 10
+# less on the card, so they run GATE_BATCH to a process (27: five
+# processes for the 135; a gate process takes ~20-25 s to start, and with
+# ten a process the pool's 51 processes spent ~1,200 of its ~2,500
+# process-seconds starting)
+GATE_BATCH = 27
+# the gates that are neither of GATE_ORDER (the longest, alone) nor
+# batched above: 10-70 s each on the card, MEDIUM_BATCH to a process
+MEDIUM_BATCH = 4
 
 
 def _gate_jobs(names):
-    """The gates as jobs, one process each: the slow ones alone, those of
+    """The gates as jobs, one process each: those of GATE_ORDER (the
+    longest) alone, the others in groups of MEDIUM_BATCH, those of
     torch_gates.BATCHED in groups of GATE_BATCH."""
     import torch_gates
     batched = [n for n in names if n in getattr(torch_gates, "BATCHED", ())]
-    jobs = [[n] for n in names if n not in batched]
+    medium = [n for n in names if n not in batched and n not in GATE_ORDER]
+    jobs = [[n] for n in names if n in GATE_ORDER]
+    jobs += [medium[i:i + MEDIUM_BATCH]
+             for i in range(0, len(medium), MEDIUM_BATCH)]
     jobs += [batched[i:i + GATE_BATCH]
              for i in range(0, len(batched), GATE_BATCH)]
     return jobs
@@ -5208,6 +5252,596 @@ def phase_physics(pool):
     if failed:
         raise AssertionError(f"physics gates failed: {failed}")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# [mesh]: the global model on ranks (parallel/mesh.py)
+# ---------------------------------------------------------------------------
+
+# the layouts of the half-degree cycle on gloo ranks that share cuda:0: the
+# 2x2 mesh (tiles of 200x360) and the 1x2 mesh (400x360)
+MESH_LAYOUTS = ((2, 2), (1, 2))
+MESH_RANKS = 4
+# the ensemble over ranks: four double-gyre members at SLICE's size, one
+# on each rank, told apart by their winds
+MESH_ENSEMBLE = 4
+# the kernels' tile forms that the ranks capture from the 2x2 cycle and
+# check: rank 0 (the bottom-left tile, on the fold grid's bottom rank row)
+# all of them, rank 2 (the top-left tile, under the fold) those that
+# differ there: the HALO form without the fold image row, the y flux
+# under the fold's ghost row
+MESH_CHECKERS = {0: None, 2: ("halo", "merid_flux")}
+MESH_FIELDS = ("h", "u", "v", "T", "S")
+# with --mesh the cycles and the tile forms run under the profiler (each
+# rank's process takes the flag from its arguments)
+MESH_PROFILE = "--mesh" in sys.argv
+
+
+def _capture_tile_launches():
+    """Wrap the kernels' launch functions so that the first launch of each
+    form and shape keeps a copy of its inputs: {(form, shape): args}.
+    Returns (seen, undo)."""
+    seen = {}
+    saved = []
+
+    def wrap(module, attr, form_of):
+        orig = getattr(module, attr)
+
+        def record(*args):
+            key = form_of(*args)
+            if key is not None and key not in seen:
+                seen[key] = [a.clone() if torch.is_tensor(a) else a
+                             for a in args]
+            return orig(*args)
+        setattr(module, attr, record)
+        saved.append((module, attr, orig))
+
+    wrap(cppm, "_edges_launch",
+         lambda name, h, *a: (f"{name} tile", tuple(h.shape)))
+    wrap(cppm, "_edges_halo_launch",
+         lambda name, hp, mp, ny, h_min, mono, s2, fold:
+         (f"halo fold={int(fold)}", tuple(hp.shape)))
+    wrap(cppm, "_flux_launch",
+         lambda name, h, *a: (f"{name} tile", tuple(h.shape)))
+    wrap(remap, "_remap_launch",
+         lambda coef, *a: ("remap tile", tuple(coef.shape)))
+
+    def undo():
+        for module, attr, orig in saved:
+            setattr(module, attr, orig)
+    return seen, undo
+
+
+def _tile_row(label, shape, pairs, nbytes, nflops, kernel_name):
+    """A tile form's row: each (kernel, plain) of ``pairs`` 0 ulps apart
+    in every output, the first pair timed (the kernel from an idle
+    device, 20 calls; its plain version PLAIN_REPS calls).  Its device
+    ms (the profiler's, in the kernels whose name holds ``kernel_name``)
+    only with ``--mesh``: the trace costs seconds a form with the four
+    ranks' processes up, so a whole run leaves it null."""
+    err = 0.0
+    for kernel, plain in pairs:
+        for k, p in zip(kernel(), plain()):
+            ul = max_ulps(k, p)
+            if ul != 0:
+                raise AssertionError(f"[mesh] {label} {shape}: {ul} ulps")
+            err = max(err, float((k - p).abs().max()))
+    ms = median_ms(pairs[0][0])
+    d_ms = device_ms(pairs[0][0], kernel_name) if MESH_PROFILE else None
+    pms = median_ms(pairs[0][1], PLAIN_REPS, warm=1)
+    row = _kernel_row(err, ms, d_ms, pms, nbytes, nflops, shape)
+    dev = "" if d_ms is None else f", device {d_ms:.4f} ms"
+    log(f"[mesh] {label} {shape}: {len(pairs)} forms 0 ulps; kernel "
+        f"{ms:.4f} ms{dev}, plain {pms:.4f} ms, bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return row
+
+
+def _check_tile_forms(seen, rank):
+    """Each captured tile form against its plain version at the same
+    inputs (0 ulps), timed: {(row name, shape): row}."""
+    rows = {}
+    for (form, shape), args in sorted(seen.items(), key=str):
+        if form.startswith("halo") or form.endswith("edges tile"):
+            if form.startswith("halo"):
+                name, hp, mp, ny, h_min, _, _, fold = args
+                key, out = "ppm_edges_y_halo", (hp.shape[0], ny,
+                                                hp.shape[2])
+                label = f"{key} (rank {rank}, fold image row {bool(fold)})"
+                kern = lambda mono, s2: cppm._edges_halo_launch(  # noqa
+                    name, hp, mp, ny, h_min, mono, s2, fold)
+                plain = lambda mono, s2: cppm.ppm_edges_halo_plain(  # noqa
+                    hp, mp, h_min, mono, s2, fold)
+            else:
+                name, hp, mp, h_min, _, _, direction = args[:7]
+                key, out = "ppm_edges_x", tuple(hp.shape)
+                label = f"{key} tile (rank {rank}, halo columns)"
+                kern = lambda mono, s2: cppm._edges_launch(  # noqa
+                    name, hp, mp, h_min, mono, s2, direction)
+                plain = lambda mono, s2: cppm.ppm_edges_plain(  # noqa
+                    hp, mp, h_min, mono, s2, direction)
+            n, plane = math.prod(out), out[1] * out[2]
+            rows[(key, out)] = _tile_row(
+                label, out, [(functools.partial(kern, mono, s2),
+                              functools.partial(plain, mono, s2))
+                             for _, mono, s2 in LIMITERS],
+                4 * (3 * n + plane), FLOPS_PER_POINT["ppm_edges"] * n,
+                "ppm_edges")
+        elif "flux" in form:
+            name, h, hl, hr, face, d_p, d_m, u = args[:8]
+            direction = args[10]
+            key = "ppm_flux_x" if direction == cppm._DIR_X else "ppm_flux_y"
+            g = torch.Generator(device=u.device).manual_seed(5)
+            dw = 0.05 * torch.randn(u.shape[1:], generator=g,
+                                    device=u.device, dtype=u.dtype)
+            rem = torch.rand(u.shape, generator=g, device=u.device,
+                             dtype=u.dtype)
+            pairs = [(functools.partial(cppm._flux_launch, name, h, hl, hr,
+                                        face, d_p, d_m, u, a, b, direction),
+                      functools.partial(cppm.ppm_flux_plain, h, hl, hr, face,
+                                        d_p, d_m, u, a, b, direction))
+                     for a, b in ((dw, rem), (None, None))]
+            n, plane = math.prod(shape), shape[1] * shape[2]
+            rows[(key, shape)] = _tile_row(
+                f"{key} tile (rank {rank}, a halo row or column)", shape,
+                pairs, 4 * (7 * n + 4 * plane),
+                FLOPS_PER_POINT["ppm_flux"] * n, "ppm_flux_kernel")
+        elif form == "remap tile":
+            coef, h0, h1, lo, hi = args
+            nf, npoly, nz0 = coef.shape[0], coef.shape[1], coef.shape[2]
+            n_bytes, n_ops = _remap_work(nf, npoly, nz0, h1.shape[0],
+                                         h0.shape[1] * h0.shape[2])
+            rows[("remap", tuple(coef.shape))] = _tile_row(
+                f"remap tile (rank {rank}, nf={nf})", tuple(coef.shape),
+                [(lambda: [remap._remap_launch(coef, h0, h1, lo, hi)],
+                  lambda: [remap.remap_integrals_plain(coef, h0, h1, lo,
+                                                       hi)])],
+                n_bytes, n_ops, "remap_kernel")
+    return rows
+
+
+def _check_tile_tridiag(a, b, c, d, rank):
+    """The Thomas kernel at a tile shape of the cycle against its plain
+    version (0 ulps), timed."""
+    n = d.numel()
+    return _tile_row(f"tridiag tile (rank {rank})", tuple(d.shape),
+                     [(lambda: [solvers.tridiag_solve(a, b, c, d)],
+                       lambda: [solvers.tridiag_solve_plain(a, b, c, d)])],
+                     4 * 5 * n, FLOPS_PER_POINT["tridiag"] * n,
+                     "thomas_kernel")
+
+
+def _card_busy(fn):
+    """(``fn()``, NVML's utilization.gpu in percent while it ran): the mean
+    of the share of each sample period in which a kernel ran, sampled
+    every 100 ms by nvidia-smi; None where no sample came.  A period with
+    any kernel counts whole, so it overstates the busy share of short
+    kernels: it is not the profiler's idle share.  The profiler's trace of
+    a ~93,600-kernel cycle costs ~10 s of host time (38.8 s for the four
+    gloo ranks' cycle), the sampler none."""
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=utilization.gpu",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        time.sleep(0.3)                 # its first sample
+        out = fn()
+    finally:
+        smi.terminate()
+        text = smi.communicate(timeout=30)[0]
+    vals = [float(v) for v in text.split() if v.replace(".", "").isdigit()]
+    return out, (statistics.mean(vals) if vals else None)
+
+
+def _card_use(run, sample=True):
+    """(``run()``, what the card did while it ran): with ``--mesh`` this
+    process's device ms from the profiler (``device_ms``,
+    :func:`_device_activity`); else, where ``sample``, NVML's sampled
+    utilization.gpu (``nvml_busy``, :func:`_card_busy`)."""
+    if MESH_PROFILE:
+        res = []
+        dev_ns = _device_activity(lambda: res.append(run()))[0]
+        return res[0], dict(device_ms=dev_ns / 1e6)
+    if sample:
+        out, busy = _card_busy(run)
+        return out, dict(nvml_busy=busy)
+    return run(), {}
+
+
+def _mesh_cycle(mesh, stepper, st):
+    """One thermo cycle on the mesh from ``st``: (state, record) with the
+    wall ms of the slowest rank, this rank's exchanges, bytes sent and
+    launches, and what the card did (:func:`_card_use`: every rank's
+    device ms with ``--mesh``, else NVML's utilization on the mesh's rank
+    0)."""
+    import torch.distributed as dist
+    reset_kernel_launches()
+    n0, b0 = mesh.exchanges, mesh.bytes_sent
+
+    def run():
+        torch.cuda.synchronize()
+        dist.barrier(group=mesh.group)
+        t0 = time.time()
+        out = stepper(st)
+        torch.cuda.synchronize()
+        dist.barrier(group=mesh.group)
+        return out, 1e3 * (time.time() - t0)
+    (out, wall), use = _card_use(run, sample=mesh.rank == 0)
+    return out, dict(wall_ms=wall, exchanges=mesh.exchanges - n0,
+                     bytes_sent=mesh.bytes_sent - b0,
+                     launches=kernel_launches(), **use)
+
+
+def _mesh_rank(rank, world, port, model_path, tmp, queue, profile):
+    """A gloo rank on cuda:0 (a process of its own): the half-degree cycle
+    on each layout of MESH_LAYOUTS, BT_WIDE_HALO AUTO on the 2x2 mesh, the
+    tile forms of the kernels (MESH_CHECKERS), the ensemble over ranks.
+    What a mesh's rank 0 gathers goes to ``tmp``; the records go to
+    ``queue``.  ``profile``: ``--mesh`` (:data:`MESH_PROFILE`).  Any failure
+    fails the process."""
+    global MESH_PROFILE
+    import datetime
+    import torch.distributed as dist
+    from mom6_tpu_torch.core.barotropic import auto_wide_halo
+    from mom6_tpu_torch.core.bt_widehalo import run_subcycle_widehalo
+    from mom6_tpu_torch.diagnostics.sum_output import compute_stats_device
+    from mom6_tpu_torch.parallel.ensemble import (
+        ensemble_mesh, ensemble_step_sharded, gather_ensemble,
+        shard_ensemble)
+    from mom6_tpu_torch.parallel.mesh import Mesh, gather, shard_model
+    MESH_PROFILE = profile
+    torch.set_num_threads(2)
+    t_start = time.time()
+
+    def stage(what):
+        if rank == 0:
+            log(f"[mesh] rank 0: {what} at {time.time() - t_start:.1f} s")
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=600))
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels.library()
+    G, GV, st, p, f = torch.load(model_path, weights_only=False)
+    dt = p.dyn.dt
+    stage("the group started and the model loaded")
+    rec = {"rank": rank}
+    groups = {s: (None if s[0] * s[1] == world
+                  else dist.new_group(list(range(s[0] * s[1]))))
+              for s in MESH_LAYOUTS}
+    for shape in MESH_LAYOUTS:
+        if rank >= shape[0] * shape[1]:
+            continue
+        tag = f"{shape[0]}x{shape[1]}"
+        mesh = Mesh(shape, group=groups[shape], device=dev)
+        tiles = shard_model(mesh, G, GV, st, p, f)
+        Gt, GVt, stt, pt, ft = tiles
+        stepper = make_mom_stepper(Gt, GVt, pt, ft)
+        first = shape == MESH_LAYOUTS[0]
+        with mesh, torch.inference_mode():
+            if first and rank in MESH_CHECKERS:
+                seen, undo = _capture_tile_launches()
+                solves = []
+                orig = solvers.tridiag_solve
+
+                def keep_solve(a, b, c, d):
+                    if not solves:
+                        solves.append([t.clone() for t in (a, b, c, d)])
+                    return orig(a, b, c, d)
+                users = _solve_users()
+                for mod in users:
+                    mod.tridiag_solve = keep_solve
+                try:
+                    out, r = _mesh_cycle(mesh, stepper, stt)
+                finally:
+                    undo()
+                    for mod in users:
+                        mod.tridiag_solve = orig
+            else:
+                out, r = _mesh_cycle(mesh, stepper, stt)
+            r["stats"] = compute_stats_device(out, Gt, GVt, dt)
+            r["stats_host"] = compute_stats(out, Gt, GVt, dt)
+            got = gather(mesh, {k: getattr(out, k) for k in MESH_FIELDS})
+            if mesh.rank == 0:
+                torch.save({k: v.cpu() for k, v in got.items()},
+                           os.path.join(tmp, f"cycle_{tag}.pt"))
+            del got
+        r["tile"] = list(stt.h.shape)
+        rec[tag] = r
+        stage(f"the {tag} cycles done")
+        del out, stepper, tiles, Gt, GVt, stt, pt, ft
+        torch.cuda.empty_cache()
+        if first:
+            # BT_WIDE_HALO = AUTO on the same mesh
+            pw = p.replace(dyn=p.dyn.replace(bt=p.dyn.bt.replace(
+                wide_halo=-1)))
+            Gt, GVt, stt, pt, ft = shard_model(mesh, G, GV, st, pw, f)
+            stepper = make_mom_stepper(Gt, GVt, pt, ft)
+            w0 = run_subcycle_widehalo.exchanges
+            with mesh, torch.inference_mode():
+                out, r = _mesh_cycle(mesh, stepper, stt)
+                got = gather(mesh, {k: getattr(out, k)
+                                    for k in MESH_FIELDS})
+            r["rim_exchanges"] = run_subcycle_widehalo.exchanges - w0
+            r["width"] = auto_wide_halo(pt.dyn.bt, (mesh.ny, mesh.nx),
+                                        mesh.shape)
+            if mesh.rank == 0:
+                torch.save({k: v.cpu() for k, v in got.items()},
+                           os.path.join(tmp, f"wide_{tag}.pt"))
+            rec["wide " + tag] = r
+            stage(f"the wide-halo {tag} cycle done")
+            del out, got, stepper, Gt, GVt, stt, pt, ft
+            torch.cuda.empty_cache()
+            # the tile forms of the kernels, one checking rank at a time
+            for checker in MESH_CHECKERS:
+                dist.barrier()
+                if rank == checker:
+                    only = MESH_CHECKERS[checker]
+                    rows = _check_tile_forms(
+                        {k: v for k, v in seen.items()
+                         if only is None or k[0].startswith(only)}, rank)
+                    if only is None:
+                        a, b, c, d = solves[0]
+                        rows[("tridiag", tuple(d.shape))] = \
+                            _check_tile_tridiag(a, b, c, d, rank)
+                    rec["kernel_rows"] = {f"{k[0]} {list(k[1])}": v
+                                          for k, v in rows.items()}
+                    del seen, solves
+                    torch.cuda.empty_cache()
+            dist.barrier()
+            stage("the tile forms checked")
+    del G, GV, st, p, f
+    dist.barrier()
+    # the ensemble over ranks: four members, one on each rank
+    Gd, GVd, std, pd, fd, ens, taux = _mesh_members(dev)
+    em = ensemble_mesh(MESH_ENSEMBLE, (1, 1), device=dev)
+    Gt, _, _, _, ft = shard_model(em.spatial, Gd, GVd, std, pd, fd)
+    local = shard_ensemble(ens, em)
+    tx = taux[em.member:em.member + 1]
+
+    def member_step(s, t):
+        return step_dynamics_split_rk2(s, ft.replace(taux=t), Gt, GVd, pd)
+    with torch.inference_mode():
+        out = ensemble_step_sharded(member_step, em)(local, tx)
+        got = gather_ensemble(
+            {k: getattr(out, k) for k in ("h", "u", "v")}, em)
+    if got is not None:
+        torch.save({k: v.cpu() for k, v in got.items()},
+                   os.path.join(tmp, "ensemble.pt"))
+    dist.barrier()
+    stage("the ensemble stepped")
+    queue.put(rec)
+    dist.destroy_process_group()
+
+
+def _solve_users():
+    """The modules whose tridiag_solve the cycle calls (to capture the
+    first solve at a tile shape)."""
+    import importlib
+    return [importlib.import_module(n) for n in (
+        "mom6_tpu_torch.physics.vertical.vert_friction",
+        "mom6_tpu_torch.tracers.vert_diff")]
+
+
+def _mesh_members(dev):
+    """The ensemble's members: the double gyre at SLICE's size on ``dev``
+    with winds scaled by 1 + 0.1 i, as stacked states and winds."""
+    from mom6_tpu_torch.parallel.ensemble import stack_ensemble
+    G, GV, st, p, f = double_gyre(
+        nx=SLICE["nx"], ny=SLICE["ny"], nz=SLICE["nz"],
+        len_lon_km=SLICE["len_lon_km"], len_lat_km=SLICE["len_lat_km"],
+        dt=SLICE["dt"], device=dev)
+    ens = stack_ensemble([st] * MESH_ENSEMBLE)
+    taux = torch.stack([f.taux * (1.0 + 0.1 * i)
+                        for i in range(MESH_ENSEMBLE)])
+    return G, GV, st, p, f, ens, taux
+
+
+def _mesh_nccl(ms, want, dt):
+    """The single NCCL rank: the cycle on a 1x1 mesh of a one-rank NCCL
+    group (its reductions go through NCCL) against the plain cycle."""
+    import socket
+    import torch.distributed as dist
+    from mom6_tpu_torch.diagnostics.sum_output import compute_stats_device
+    from mom6_tpu_torch.parallel.mesh import Mesh, shard_model
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = Mesh((1, 1), device=torch.device("cuda", 0))
+        G, GV, st, p, f = shard_model(mesh, ms.grid, ms.vgrid, ms.state,
+                                      ms.params, ms.forcing)
+        stepper = make_mom_stepper(G, GV, p, f)
+        with mesh, torch.inference_mode():
+            out, r = _mesh_cycle(mesh, stepper, st)
+            r["stats"] = compute_stats_device(out, G, GV, dt)
+            for k in MESH_FIELDS:
+                if not torch.equal(getattr(out, k), getattr(want, k)):
+                    raise AssertionError(f"[mesh] the NCCL rank's {k} "
+                                         "differs from the plain cycle")
+        del out, stepper, G, GV, st, p, f
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return r
+
+
+def _mesh_line(tag, r, n_ranks, dev_ms=None):
+    """A cycle's line: ``r`` the mesh's rank 0's record, ``dev_ms`` the
+    profiled device ms summed over the ranks (``--mesh``)."""
+    if dev_ms is not None:
+        use = (f"{dev_ms:.1f} device ms over the ranks, the card idle "
+               f"{100.0 * (1.0 - dev_ms / r['wall_ms']):.1f}% of this "
+               f"profiled cycle (torch.profiler)")
+    elif r.get("nvml_busy") is not None:
+        use = (f"NVML's utilization.gpu {r['nvml_busy']:.1f}% (sampled "
+               f"every 100 ms; not an idle share)")
+    else:
+        use = "the card's use not measured"
+    log(f"[mesh] {tag}: {n_ranks} rank(s), {r['wall_ms']:.1f} wall ms a "
+        f"cycle; {r['exchanges']} exchanges and {r['bytes_sent']} bytes "
+        f"sent a cycle a rank (rank 0); launches a rank (rank 0) "
+        f"{ {k: v for k, v in r['launches'].items() if v} }; {use}")
+
+
+def phase_mesh(dev, ms, card):
+    """[mesh]: the half-degree global model (720x400x32, f32) for one
+    thermo cycle on 2x2 and 1x2 gloo ranks that share cuda:0, with
+    BT_WIDE_HALO AUTO on the 2x2 mesh, and on one NCCL rank: each
+    gathered h, u, v, T, S and its ocean.stats to the bit with the plain
+    one-rank cycle; the kernels' tile forms at the tiles' shapes against
+    their plain versions (0 ulps); the ensemble of four members, one a
+    rank, to the bit with one process.  Returns (the 2x2 rank 0's launch
+    counts, {row name: [kernel rows]})."""
+    import multiprocessing as mp
+    import socket
+    import tempfile
+    from mom6_tpu_torch.diagnostics.sum_output import compute_stats_device
+    from mom6_tpu_torch.parallel.ensemble import ensemble_step
+    G, GV, st, p, f = ms.grid, ms.vgrid, ms.state, ms.params, ms.forcing
+    dt = p.dyn.dt
+    one = make_mom_stepper(G, GV, p, f)
+    with torch.inference_mode():
+        reset_kernel_launches()
+
+        def run():
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = one(st)
+            torch.cuda.synchronize()
+            return out, 1e3 * (time.time() - t0)
+        (want, plain_ms), use = _card_use(run)
+    stats_want = compute_stats_device(want, G, GV, dt)
+    host_want = compute_stats(want, G, GV, dt)
+    _mesh_line("the plain one-rank cycle (no process group)",
+               dict(wall_ms=plain_ms, exchanges=0, bytes_sent=0,
+                    launches=kernel_launches(), **use), 1,
+               use.get("device_ms"))
+    os.makedirs(OUT, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="mesh_", dir=OUT)
+    try:
+        model_path = os.path.join(tmp, "model.pt")
+        torch.save((G.to("cpu"), GV.to("cpu"), st.to("cpu"),
+                    _to_cpu_params(p), f.to("cpu")), model_path)
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        ctx = mp.get_context("spawn")
+        queue = ctx.Queue()
+        procs = [ctx.Process(target=_mesh_rank,
+                             args=(r, MESH_RANKS, port, model_path, tmp,
+                                   queue, MESH_PROFILE))
+                 for r in range(MESH_RANKS)]
+        t_spawn = time.time()
+        for pr in procs:
+            pr.start()
+        recs = {}
+        try:
+            while len(recs) < MESH_RANKS:
+                try:
+                    r = queue.get(timeout=5)
+                    recs[r["rank"]] = r
+                except Exception:
+                    dead = [pr for pr in procs
+                            if not pr.is_alive() and pr.exitcode != 0]
+                    if dead:
+                        raise AssertionError(
+                            f"[mesh] a rank failed: exit codes "
+                            f"{[pr.exitcode for pr in procs]}")
+                    if time.time() - t_spawn > 900:
+                        raise AssertionError("[mesh] the ranks timed out")
+            for pr in procs:
+                pr.join(timeout=120)
+                if pr.exitcode != 0:
+                    raise AssertionError(f"[mesh] a rank exited with "
+                                         f"{pr.exitcode}")
+        finally:
+            for pr in procs:
+                if pr.is_alive():
+                    pr.kill()
+                    pr.join()
+        log(f"[mesh] {MESH_RANKS} gloo ranks on cuda:0: "
+            f"{time.time() - t_spawn:.1f} s from their start to their end")
+        # each gathered cycle to the bit with the plain cycle
+        for tag in [f"{a}x{b}" for a, b in MESH_LAYOUTS] + [
+                f"wide {MESH_LAYOUTS[0][0]}x{MESH_LAYOUTS[0][1]}"]:
+            path = os.path.join(tmp, ("cycle_" + tag if " " not in tag
+                                      else tag.replace(" ", "_")) + ".pt")
+            got = torch.load(path)
+            for k in MESH_FIELDS:
+                w = getattr(want, k).cpu()
+                if not torch.equal(got[k], w):
+                    raise AssertionError(
+                        f"[mesh] {tag}: {k} differs from the one-rank "
+                        f"cycle by {rel_err(got[k], w):.3e}")
+            log(f"[mesh] {tag}: h, u, v, T, S gathered equal the plain "
+                f"one-rank cycle to the bit")
+        for shape in MESH_LAYOUTS:
+            tag = f"{shape[0]}x{shape[1]}"
+            r0 = recs[0][tag]
+            for r in range(shape[0] * shape[1]):
+                s = recs[r][tag]
+                if s["stats"] != stats_want or s["stats_host"] != host_want:
+                    raise AssertionError(f"[mesh] {tag} rank {r}: ocean."
+                                         f"stats {s['stats']} differs from "
+                                         f"{stats_want}")
+            n = shape[0] * shape[1]
+            _mesh_line(f"{tag} gloo, tile {r0['tile']}", r0, n,
+                       sum(recs[r][tag]["device_ms"] for r in range(n))
+                       if MESH_PROFILE else None)
+        log(f"[mesh] ocean.stats on every mesh equal the plain cycle's to "
+            f"the bit, device {stats_want} and host {host_want}")
+        tagw = f"{MESH_LAYOUTS[0][0]}x{MESH_LAYOUTS[0][1]}"
+        wide, dense = recs[0]["wide " + tagw], recs[0][tagw]
+        log(f"[mesh] BT_WIDE_HALO AUTO on {tagw}: width {wide['width']}, "
+            f"{wide['exchanges']} exchanges a cycle ({wide['rim_exchanges']}"
+            f" rim exchanges) against the dense path's {dense['exchanges']};"
+            f" {wide['wall_ms']:.1f} wall ms against {dense['wall_ms']:.1f}")
+        if not (wide["width"] > 0 and wide["exchanges"] < dense["exchanges"]):
+            raise AssertionError("[mesh] the wide halo took no fewer "
+                                 "exchanges")
+        # the ensemble over ranks against one process
+        Gd, GVd, std, pd, fd, ens, taux = _mesh_members(dev)
+
+        def member_step(s, t):
+            return step_dynamics_split_rk2(s, fd.replace(taux=t), Gd, GVd,
+                                           pd)
+        with torch.inference_mode():
+            one_ens = ensemble_step(member_step)(ens, taux)
+        got = torch.load(os.path.join(tmp, "ensemble.pt"))
+        for k in ("h", "u", "v"):
+            if not torch.equal(got[k], getattr(one_ens, k).cpu()):
+                raise AssertionError(f"[mesh] the ensemble's {k} over ranks "
+                                     f"differs from one process")
+        log(f"[mesh] the ensemble of {MESH_ENSEMBLE} double-gyre members "
+            f"({SLICE['nx']}x{SLICE['ny']}x{SLICE['nz']}), one a rank, "
+            f"equals ensemble_step in one process to the bit")
+        del one_ens, ens, Gd, GVd, std, pd, fd
+        nccl = _mesh_nccl(ms, want, dt)
+        if nccl["stats"] != stats_want:
+            raise AssertionError("[mesh] the NCCL rank's ocean.stats differ")
+        _mesh_line("1x1 NCCL rank, equal to the plain cycle to the bit",
+                   nccl, 1, nccl.get("device_ms"))
+        rows = {}
+        for r in MESH_CHECKERS:
+            for key, row in recs[r]["kernel_rows"].items():
+                name = key.split(" ")[0]
+                row = dict(row, rank=r, path="mesh 2x2")
+                rows.setdefault(name, []).append(row)
+        return recs[0][tagw]["launches"], rows
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _to_cpu_params(p):
+    """The model parameters with their tensors on the host (to hand them
+    to the ranks)."""
+    from mom6_tpu_torch.framework.containers import tree_map
+    return tree_map(lambda t: t.to("cpu"), p)
+
 
 
 def gate_main(names):
@@ -5315,6 +5949,13 @@ def main():
         log(f"[time] rk2b and oda: {time.time() - t0:.1f} s")
         log(f"[card] {card}")
         return
+    if "--mesh" in sys.argv:
+        t0 = time.time()
+        counts, rows = phase_mesh(dev, ms, card)
+        log(f"[time] mesh: {time.time() - t0:.1f} s")
+        log(f"[card] {card}")
+        log(json.dumps({"mesh_launches": counts, "mesh_rows": rows}))
+        return
     if "--coupled" in sys.argv:
         _check_tridiag_shared(dev, COUPLED_SHARED)
         _check_remap(COUPLED_REMAP, dev, {})
@@ -5359,6 +6000,12 @@ def main():
     counts["rk2b"] = timed("rk2b", phase_rk2b, dev, card)
     torch.cuda.empty_cache()
     counts["oda"] = timed("oda", phase_oda, dev, ms, card)
+    torch.cuda.empty_cache()
+    counts["mesh"], mesh_rows = timed("mesh", phase_mesh, dev, ms, card)
+    for name, rs in mesh_rows.items():
+        SHAPE_ROWS.setdefault(name, []).extend(rs)
+    results["ppm_edges_y_halo"] = next(
+        r for r in mesh_rows["ppm_edges_y_halo"] if r["rank"] == 0)
     del ms
     torch.cuda.empty_cache()
     # the gates' processes run beside the checks that follow (nothing after

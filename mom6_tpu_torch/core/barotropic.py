@@ -25,8 +25,17 @@ CONST_DYN_PSURF times the gravity-wave stability limit of the substep.
 
 The scalar self-attraction and loading (SAL_SCALAR_VALUE, ``sal_scalar``)
 scales the free surface's pressure gradient in the substeps by 1 - beta.
-Not ported (it raises NotImplementedError when switched on): the
-wide-halo subcycle.
+
+On a mesh of ranks (parallel/mesh.py) the substeps' shifts exchange with
+the neighbour ranks, one exchange a shift.  With ``wide_halo``
+(BT_WIDE_HALO) the subcycle on the active mesh runs instead in the
+wide-halo form of core/bt_widehalo.py, a rim exchange every few
+substeps; AUTO (-1) takes its width from the mesh and the tile
+(:func:`auto_wide_halo`).  Without a mesh the wide halo is off, as on
+the reference's single device.  The reference binds its mesh into the
+parameters (its parallel/mesh.py::bind_mesh) because JAX has no ambient
+context; here the mesh that ``with mesh:`` makes active is the one
+every shift, sum and subcycle reads, so there is no such binding.
 """
 
 from __future__ import annotations
@@ -37,13 +46,16 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from mom6_tpu_torch.core.bt_widehalo import run_subcycle_widehalo
 from mom6_tpu_torch.core.continuity_ppm import find_uhbt, find_vhbt
 from mom6_tpu_torch.framework.arith import cpow, csqrt, rdiv, sdiv, vsum
 from mom6_tpu_torch.framework.containers import fields_equal
+from mom6_tpu_torch.framework import stencil
+from mom6_tpu_torch.framework.repro_sum import global_max, global_min
 from mom6_tpu_torch.framework.stencil import im1, ip1, jm1, jm1_s0, jp1
 
 __all__ = ["BTParams", "BTOut", "btstep", "set_dtbt", "btcalc",
-           "dtbt_max_from_state"]
+           "dtbt_max_from_state", "auto_wide_halo"]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -64,7 +76,10 @@ class BTParams:
     const_dyn_psurf: float = 0.9        # CONST_DYN_PSURF
     ice_strength_length: float = 1.0e4  # ICE_LENGTH_DYN_PSURF [m]
     dmin_dyn_psurf: float = 1.0e-6      # the depth floor [m]
-    wide_halo: int = 0          # wide-halo subcycle (not ported)
+    # the wide-halo subcycle (BT_WIDE_HALO, core/bt_widehalo.py): the
+    # rim width, 0 the dense path, -1 AUTO; it needs an active mesh
+    wide_halo: int = 0
+    halo_per_substep: int = 2   # rim cells a substep consumes
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
@@ -73,6 +88,28 @@ class BTParams:
         if not isinstance(other, BTParams):
             return NotImplemented
         return fields_equal(self, other)
+
+
+def auto_wide_halo(params: BTParams, grid_shape, layout=None) -> int:
+    """BT_WIDE_HALO = AUTO (-1): the reference's choice (its
+    auto_wide_halo, the BTHALO default logic of MOM_barotropic.F90:5450).
+    0 (dense) without a mesh, on one rank or where the tiles are too
+    small for a useful rim; else a width aiming at ~8 substeps an
+    exchange (8 * halo_per_substep), capped at half the smaller tile
+    side.  ``grid_shape``: the global (..., ny, nx); ``layout``: the
+    mesh's (Py, Px), by default the active mesh's."""
+    if layout is None:
+        if stencil._MESH is None:
+            return 0
+        layout = stencil._MESH.shape
+    my, mx = layout
+    if my * mx == 1:
+        return 0
+    ny, nx = grid_shape[-2:]
+    min_shard = min(ny // max(my, 1), nx // max(mx, 1))
+    r = max(1, int(params.halo_per_substep))
+    w = min(8 * r, (min_shard // 2) // 2 * 2)
+    return w if w >= 2 * r else 0
 
 
 class BTOut(NamedTuple):
@@ -131,10 +168,10 @@ def set_dtbt(G, GV, max_depth: float, dt: float, cfl: float = 0.7):
     """Barotropic substep count from the external gravity-wave CFL
     (set_dtbt).  Host side; returns (nstep, dt/nstep)."""
     wet = _np(G.mask2dT) > 0.5
-    if not wet.any():
+    if global_max(wet) < 0.5:               # no wet cell on any tile
         wet = np.ones_like(wet)
-    dx = float(np.min(np.where(wet, _np(G.dxT), np.inf)))
-    dy = float(np.min(np.where(wet, _np(G.dyT), np.inf)))
+    dx = global_min(np.where(wet, _np(G.dxT), np.inf))
+    dy = global_min(np.where(wet, _np(G.dyT), np.inf))
     cg = np.sqrt(GV.g_earth * max_depth)
     dtbt = cfl * min(dx, dy) / (np.sqrt(2.0) * cg)
     nstep = max(1, int(np.ceil(dt / dtbt)))
@@ -168,6 +205,8 @@ def dtbt_max_from_state(h, pbce, G, bebt: float, dgeo_de: float = 1.0):
         + cor2)
     idt2_max = torch.amax(torch.where(G.mask2dT > 0.5, idt2,
                                       torch.zeros_like(idt2)))
+    if stencil._MESH is not None:
+        idt2_max = stencil._MESH.all_max(idt2_max)
     return csqrt(1.0 / torch.clamp(idt2_max * dgeo_de, min=1e-30))
 
 
@@ -368,9 +407,6 @@ def btstep(u_in, v_in, eta_in, bc_accel_u, bc_accel_v, h, uh_in, vh_in,
     time-filtered velocities, its initial velocity is the instantaneous
     one); the transport mismatch uhbt0 is taken at their barotropic
     projection."""
-    if params.wide_halo != 0:
-        raise NotImplementedError("btstep: the wide-halo subcycle is not "
-                                  "ported")
     np_dtype = np.float32 if u_in.dtype == torch.float32 else np.float64
     rnd = lambda x: float(np_dtype(x))     # round a scalar to the dtype
     nstep, nfilter = params.nstep, params.nfilter
@@ -525,12 +561,27 @@ def btstep(u_in, v_in, eta_in, bc_accel_u, bc_accel_v, h, uh_in, vh_in,
     sal_fac = rnd(1.0 - params.sal_scalar)
     consts = dict(dtbt=dtbt, bebt=bebt, geo=rnd(dgeo * sal_fac))
 
-    half_step = _make_half_step(F, consts, dense_kit(G), transports)
     uhbt_0, vhbt_0 = transports(ubt_in, vbt_in)
-    carry = _run_subcycle_dense(half_step,
-                                (ubt_in, vbt_in, eta_in, uhbt_0, vhbt_0),
-                                wt_trans, wt_vel, nstep, nfilter,
-                                first_u_leads=bool(x_first))
+    evolve0 = (ubt_in, vbt_in, eta_in, uhbt_0, vhbt_0)
+    mesh = stencil._MESH
+    w_eff = params.wide_halo
+    if w_eff < 0 and mesh is not None:         # AUTO (BT_WIDE_HALO = -1)
+        w_eff = auto_wide_halo(params, (mesh.ny, mesh.nx))
+    if w_eff > 0 and mesh is not None:
+        if params.use_bt_cont and bt_cont is not None:
+            curves = dict(btc=bt_cont)
+        else:
+            curves = dict(Datu=Datu, Datv=Datv)
+        carry = run_subcycle_widehalo(
+            F, dict(curves, uhbt0=uhbt0, vhbt0=vhbt0), consts, evolve0,
+            wt_trans, wt_vel, nstep, nfilter, bool(x_first), int(w_eff),
+            max(1, int(params.halo_per_substep)), G, mesh, _make_half_step,
+            _acc_zero, _acc_add)
+    else:
+        half_step = _make_half_step(F, consts, dense_kit(G), transports)
+        carry = _run_subcycle_dense(half_step, evolve0, wt_trans, wt_vel,
+                                    nstep, nfilter,
+                                    first_u_leads=bool(x_first))
 
     e_anom = dgeo * (carry["eta_av"] - eta_PF)
     # per-layer acceleration (btstep_layer_accel)

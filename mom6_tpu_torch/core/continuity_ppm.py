@@ -18,6 +18,19 @@ south/north edge pair swaps.  The face width of the flux is one plane
 of each layer, (nz, ny, nx).  The Newton bookkeeping (column sums, the
 ``du`` update and its clip) stays in PyTorch.
 
+On a mesh (parallel/mesh.py) each rank holds a tile.  The plain versions
+need nothing more: their shifts are the mesh's.  A kernel reads its
+neighbours itself, so the wrappers give it a tile with a halo of the
+neighbour ranks' cells: the x edges two columns on each side, the x flux
+one; the y flux one row above (on the top rank row of a folded grid the
+fold's ghost row, the south/north edge pair swapped as the fold swaps
+it), each launched unchanged on the padded tile and cropped, so that
+the kernel's wrap touches only the cells cropped away.  The y edges take
+two rows on each side through the kernel's HALO form
+(``mom6_ppm_edges_halo``), which reads the halo as given and, on the
+bottom rank row of a folded grid, takes the fold image of the global top
+row, the plus neighbour of that row's slope, from a fifth halo row.
+
 ``set_bt_cont`` builds the barotropic solver's transport response curves
 (BT_cont, USE_BT_CONT_TYPE) from one more x and y edge reconstruction of
 the step's starting thickness, through the same ``zonal_edges`` and
@@ -31,7 +44,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from mom6_tpu_torch.framework.arith import rdiv, vsum
-from mom6_tpu_torch.framework import kernels
+from mom6_tpu_torch.framework import kernels, stencil
 from mom6_tpu_torch.framework.stencil import (im1, ip1, jm1, jm1_s0, jp1,
                                               jp1_sn)
 
@@ -228,6 +241,45 @@ def ppm_edges_padded(h, mask_t, h_min, monotonic, simple_2nd, direction,
     return _ppm_limit_pos(hc, h_L, h_R, h_min)
 
 
+def ppm_edges_halo_plain(hp, mp, h_min, monotonic, simple_2nd, fold=False):
+    """The plain version of the kernel's HALO form (the y edges of a mesh
+    tile): ``hp`` (nz, ny+4, nx) and ``mp`` (ny+4, nx) carry two halo rows
+    on each side that the caller filled, read as they are; with ``fold``
+    a fifth halo row (row ny+4) is the plus neighbour of the cell -1 (the
+    global top row seen from the bottom rank row).  Returns the edges of
+    the ny interior rows, in the order of :func:`ppm_edges_padded`."""
+    ny = hp.shape[-2] - 4 - int(fold)
+
+    def at(a, lo, hi):
+        return a.narrow(-2, lo, hi - lo)
+
+    hc = at(hp, 2, ny + 2)
+    if simple_2nd:
+        h_m = at(mp, 1, ny + 1) * at(hp, 1, ny + 1) \
+            + (1.0 - at(mp, 1, ny + 1)) * hc
+        h_p = at(mp, 3, ny + 3) * at(hp, 3, ny + 3) \
+            + (1.0 - at(mp, 3, ny + 3)) * hc
+        return 0.5 * (h_m + hc), 0.5 * (h_p + hc)
+    # positions -1 .. ny: the centres and their minus and plus neighbours
+    c, m_c = at(hp, 1, ny + 3), at(mp, 1, ny + 3)
+    lo, m_lo = at(hp, 0, ny + 2), at(mp, 0, ny + 2)
+    hi, m_hi = at(hp, 2, ny + 4).clone(), at(mp, 2, ny + 4).clone()
+    if fold:
+        hi.select(-2, 0).copy_(hp.select(-2, ny + 4))
+        m_hi.select(-2, 0).copy_(mp.select(-2, ny + 4))
+    hm_all, hp_all, slp = _ppm_edges(c, lo, hi, m_lo, m_c, m_hi, h_min,
+                                     monotonic)
+    one_sixth = 1.0 / 6.0
+    s_c = at(slp, 1, ny + 1)
+    h_L = 0.5 * (at(hm_all, 1, ny + 1) + hc) \
+        + one_sixth * (at(slp, 0, ny) - s_c)
+    h_R = 0.5 * (at(hp_all, 1, ny + 1) + hc) \
+        + one_sixth * (s_c - at(slp, 2, ny + 2))
+    if monotonic:
+        return _ppm_limit_cw84(hc, h_L, h_R)
+    return _ppm_limit_pos(hc, h_L, h_R, h_min)
+
+
 def ppm_flux_plain(h, h_L, h_R, face, d_p, d_m, u, dw, rem, direction,
                    fold=False):
     _, p1_fn, _, p1_pair_fn = _shifts(direction, fold)
@@ -297,6 +349,79 @@ def _flux_launch(name, h, h_L, h_R, face, d_p, d_m, u, dw, rem, direction,
     return uh, duhdu
 
 
+def _edges_halo_launch(name, hp, mp, ny, h_min, monotonic, simple_2nd,
+                       fold):
+    """The HALO form of the y edges on ``hp`` (nz, ny+4 or ny+5, nx) and
+    ``mp`` (ny+4 or ny+5, nx): see the module's note."""
+    _check_cuda(name, hp, hp, mp)
+    lim = _LIM_SIMPLE2 if simple_2nd else (_LIM_CW84 if monotonic
+                                          else _LIM_POS)
+    nz, _, nx = hp.shape
+    h_L = hp.new_empty((nz, ny, nx))
+    h_R = torch.empty_like(h_L)
+    rc = kernels.entry("mom6_ppm_edges_halo", hp.dtype)(
+        hp.data_ptr(), mp.data_ptr(), h_L.data_ptr(), h_R.data_ptr(),
+        nz, ny, nx, int(fold), lim, float(h_min), kernels.stream_of(hp))
+    kernels.check(rc, name)
+    return h_L, h_R
+
+
+def _tile_mesh(direction, fold=False):
+    """The active mesh when a kernel of ``direction`` needs a halo from
+    the neighbour ranks, else None."""
+    m = stencil._MESH
+    if m is None:
+        return None
+    if direction == _DIR_X:
+        return m if m.shape[1] > 1 else None
+    return m if m.shape[0] > 1 or (fold and m.shape[1] > 1) else None
+
+
+def _tile_edges(m, name, h, mask_t, h_min, monotonic, simple_2nd,
+                direction, fold):
+    """The edges of a mesh tile through its halo (the module's note)."""
+    both = torch.cat([h, mask_t[None]])
+    if direction == _DIR_X:
+        p = m.pad_x(both, 2).contiguous()
+        h_L, h_R = _edges_launch(name, p[:-1], p[-1], h_min, monotonic,
+                                 simple_2nd, _DIR_X)
+        return h_L[..., 2:-2].contiguous(), h_R[..., 2:-2].contiguous()
+    p = m.pad_y(both, 2, fold="h" if fold else None)
+    on_fold = fold and m.bottom
+    # (the top rank row sends the image; only the bottom row takes it)
+    img = None
+    if fold:
+        img = p[:, -2, :] if m.shape[0] == 1 else m.top_row_image(both)
+    if on_fold:
+        p = torch.cat([p, img[:, None, :]], dim=1)
+    p = p.contiguous()
+    return _edges_halo_launch(name, p[:-1], p[-1], h.shape[-2], h_min,
+                              monotonic, simple_2nd, on_fold)
+
+
+def _tile_flux(m, name, h, h_l, h_r, face, d_p, d_m, u, dw, rem,
+               direction, fold):
+    """The flux of a mesh tile through a halo of one cell (the module's
+    note): the plus side's cells, the face fields zero there."""
+    cells = torch.stack([h, h_l, h_r])
+    if direction == _DIR_X:
+        cp = m.pad_x(cells, 1)[..., 1:]
+        pad = (0, 1)
+        crop = (Ellipsis, slice(None), slice(0, -1))
+    else:
+        src = torch.stack([h, h_r, h_l]) if fold else None
+        cp = m.pad_y(cells, 1, fold="h" if fold else None, ghost_src=src,
+                     south=False)
+        pad = (0, 0, 0, 1)
+        crop = (Ellipsis, slice(0, -1), slice(None))
+    cp = cp.contiguous()
+    # the face fields are zero in the halo: its results are cropped
+    z = [None if t is None else torch.nn.functional.pad(t, pad).contiguous()
+         for t in (face, d_p, d_m, u, dw, rem)]
+    uh, duh = _flux_launch(name, cp[0], cp[1], cp[2], *z, direction)
+    return uh[crop].contiguous(), duh[crop].contiguous()
+
+
 def _on_cpu(name, t) -> bool:
     if t.device.type == "cpu":
         return True
@@ -310,8 +435,13 @@ def zonal_edges(h, mask_t, h_min, monotonic=False, simple_2nd=False):
     if _on_cpu("zonal_edges", h):
         return ppm_edges_plain(h, mask_t, h_min, monotonic, simple_2nd,
                                _DIR_X)
-    out = _edges_launch("zonal_edges", h, mask_t, h_min, monotonic,
-                        simple_2nd, _DIR_X)
+    m = _tile_mesh(_DIR_X)
+    if m is not None:
+        out = _tile_edges(m, "zonal_edges", h, mask_t, h_min, monotonic,
+                          simple_2nd, _DIR_X, False)
+    else:
+        out = _edges_launch("zonal_edges", h, mask_t, h_min, monotonic,
+                            simple_2nd, _DIR_X)
     zonal_edges.launches += 1
     return out
 
@@ -320,10 +450,17 @@ def merid_edges(h, mask_t, h_min, monotonic=False, simple_2nd=False,
                 fold=False):
     """(h_S, h_N): PPM edge values in y (PPM_reconstruction_y), with the
     periodic wrap of torch.roll or, with ``fold``, the tripolar northern
-    fold.  Fold launches are counted in ``fold_launches``."""
+    fold.  Fold launches are counted in ``fold_launches``, the HALO form's
+    on a mesh tile in ``halo_launches``."""
     if _on_cpu("merid_edges", h):
         return ppm_edges_plain(h, mask_t, h_min, monotonic, simple_2nd,
                                _DIR_Y, fold)
+    m = _tile_mesh(_DIR_Y, fold)
+    if m is not None:
+        out = _tile_edges(m, "merid_edges", h, mask_t, h_min, monotonic,
+                          simple_2nd, _DIR_Y, fold)
+        merid_edges.halo_launches += 1
+        return out
     out = _edges_launch("merid_edges", h, mask_t, h_min, monotonic,
                         simple_2nd, _DIR_Y, fold)
     if fold:
@@ -339,8 +476,13 @@ def zonal_flux(h, h_W, h_E, face, d_p, d_m, u, dw=None, rem=None):
     if _on_cpu("zonal_flux", u):
         return ppm_flux_plain(h, h_W, h_E, face, d_p, d_m, u, dw, rem,
                               _DIR_X)
-    out = _flux_launch("zonal_flux", h, h_W, h_E, face, d_p, d_m, u, dw,
-                       rem, _DIR_X)
+    m = _tile_mesh(_DIR_X)
+    if m is not None:
+        out = _tile_flux(m, "zonal_flux", h, h_W, h_E, face, d_p, d_m, u,
+                         dw, rem, _DIR_X, False)
+    else:
+        out = _flux_launch("zonal_flux", h, h_W, h_E, face, d_p, d_m, u,
+                           dw, rem, _DIR_X)
     zonal_flux.launches += 1
     return out
 
@@ -354,8 +496,13 @@ def merid_flux(h, h_S, h_N, face, d_p, d_m, v, dw=None, rem=None,
     if _on_cpu("merid_flux", v):
         return ppm_flux_plain(h, h_S, h_N, face, d_p, d_m, v, dw, rem,
                               _DIR_Y, fold)
-    out = _flux_launch("merid_flux", h, h_S, h_N, face, d_p, d_m, v, dw,
-                       rem, _DIR_Y, fold)
+    m = _tile_mesh(_DIR_Y, fold)
+    if m is not None:
+        out = _tile_flux(m, "merid_flux", h, h_S, h_N, face, d_p, d_m, v,
+                         dw, rem, _DIR_Y, fold)
+    else:
+        out = _flux_launch("merid_flux", h, h_S, h_N, face, d_p, d_m, v,
+                           dw, rem, _DIR_Y, fold)
     if fold:
         merid_flux.fold_launches += 1
     else:
@@ -366,6 +513,7 @@ def merid_flux(h, h_S, h_N, face, d_p, d_m, v, dw=None, rem=None,
 for _fn in (zonal_edges, merid_edges, zonal_flux, merid_flux):
     _fn.launches = 0
 merid_edges.fold_launches = 0
+merid_edges.halo_launches = 0
 merid_flux.fold_launches = 0
 
 

@@ -180,8 +180,11 @@ def coriolis_adv(u, v, h, uh, vh, G, GV, *,
         if fold:
             # across the fold the ghost cell is seen upside down: its SE
             # weight is the mirrored donor's NW one (C <-> A), SW <-> NE
-            jC[..., -1, :] = fold_ghost(A_w, "h")
-            jD[..., -1, :] = fold_ghost(B, "h")
+            # (on a mesh, only the tiles of the top row hold the fold row)
+            g_c, g_d = fold_ghost(A_w, "h"), fold_ghost(B, "h")
+            if g_c is not None:
+                jC[..., -1, :] = g_c
+                jD[..., -1, :] = g_d
         juh = jp1(uh, ku)
         cav = -((A_w * im1(uh) + jC * juh)
                 + (B * uh + jD * im1(juh))) * G.IdyCv

@@ -272,7 +272,19 @@ __device__ __forceinline__ void edges_x_tile(const T* __restrict__ h,
 // neighbours swapped, and negated, as the plain version's "dh" ghost; and
 // in the first tile the cell -1, the top row, has its fold image and not
 // row 0 as its plus neighbour (staged in s_img).
-template <typename T, int LIM, bool FOLD>
+//
+// HALO is the tile of a rank of a mesh: h and the mask carry two rows
+// below row 0 and two above row ny-1 that the caller filled (the
+// neighbour ranks' rows, or on the top rank row the fold's ghost rows in
+// the orientation of the tile), and nothing wraps or mirrors.  The image
+// of the top row then stands in the halo in the tile's orientation, where
+// its slope, formed with the neighbours it has there, is the negated
+// slope of its own orientation to the bit (the limiter's operations are
+// symmetric in the two neighbours).  With FOLD the tile is on the bottom
+// rank row and its cell -1, the global top row, takes as its plus
+// neighbour a fifth halo row after the top two: the fold image of the
+// global top row over the tile's columns.  The outputs are the ny rows.
+template <typename T, int LIM, bool FOLD, bool HALO>
 __device__ __forceinline__ void edges_y_tile(const T* __restrict__ h,
                                              const T* __restrict__ mask,
                                              T* __restrict__ h_l,
@@ -291,11 +303,16 @@ __device__ __forceinline__ void edges_y_tile(const T* __restrict__ h,
   const bool valid_col = i < nx;
   const int ic = valid_col ? i : nx - 1;
   const long long plane = (long long)ny * nx;
+  const long long in_plane =
+      HALO ? (long long)(ny + 4 + (FOLD ? 1 : 0)) * nx : plane;
   int off[kLoadsY];
 #pragma unroll
   for (int q = 0; q < kLoadsY; ++q) {
     int jj = j0 + w + kStripsY * q - 2, ii = ic;
-    if (jj < 0 || jj >= ny) {
+    if (HALO) {
+      // rows beyond the halo are never read for a stored cell
+      jj = min(max(jj, -2), ny + 1) + 2;
+    } else if (jj < 0 || jj >= ny) {
       if (FOLD && jj >= ny) {
         // a row beyond ny + 1 is never read for a stored cell
         jj = max(2 * ny - 1 - jj, 0);
@@ -308,22 +325,25 @@ __device__ __forceinline__ void edges_y_tile(const T* __restrict__ h,
     s_m[w + kStripsY * q][c] = mask[off[q]];
   }
   const bool first = FOLD && j0 == 0;
-  const int img = (ny - 1) * nx + (nx - 1 - ic);
+  const int img =
+      HALO ? (ny + 4) * nx + ic : (ny - 1) * nx + (nx - 1 - ic);
   if (first && w == 0) s_img[1][c] = mask[img];
   T v[kLoadsY], v_img = T(0);
 #pragma unroll
-  for (int q = 0; q < kLoadsY; ++q) v[q] = h[k0 * plane + off[q]];
-  if (first && w == 0) v_img = h[k0 * plane + img];
+  for (int q = 0; q < kLoadsY; ++q) v[q] = h[k0 * in_plane + off[q]];
+  if (first && w == 0) v_img = h[k0 * in_plane + img];
   for (int g = 0; g < nk; ++g) {
     const long long base = (k0 + g) * plane;
+    const long long in_base = (k0 + g) * in_plane;
 #pragma unroll
     for (int q = 0; q < kLoadsY; ++q) s_h[w + kStripsY * q][c] = v[q];
     if (first && w == 0) s_img[0][c] = v_img;
     __syncthreads();
     if (g + 1 < nk) {
 #pragma unroll
-      for (int q = 0; q < kLoadsY; ++q) v[q] = h[base + plane + off[q]];
-      if (first && w == 0) v_img = h[base + plane + img];
+      for (int q = 0; q < kLoadsY; ++q)
+        v[q] = h[in_base + in_plane + off[q]];
+      if (first && w == 0) v_img = h[in_base + in_plane + img];
     }
     if (LIM == LIM_SIMPLE2) {
 #pragma unroll
@@ -353,7 +373,7 @@ __device__ __forceinline__ void edges_y_tile(const T* __restrict__ h,
           if (j0 + p == -1) {
             hi = s_img[0][c];
             m_hi = s_img[1][c];
-          } else if (j0 + p == ny) {
+          } else if (!HALO && j0 + p == ny) {
             flip = true;
             const T a = lo, b = m_lo;
             lo = hi;
@@ -388,9 +408,9 @@ __device__ __forceinline__ void edges_y_tile(const T* __restrict__ h,
   }
 }
 
-// One launch per (direction, limiter, fold): the x tiles or the y tiles
-// of every layer chunk of kc layers (blockIdx.y).
-template <typename T, int DIR, int LIM, bool FOLD>
+// One launch per (direction, limiter, fold, halo): the x tiles or the y
+// tiles of every layer chunk of kc layers (blockIdx.y).
+template <typename T, int DIR, int LIM, bool FOLD, bool HALO = false>
 __global__ void __launch_bounds__(kEdgeThreads)
     ppm_edges_kernel(const T* __restrict__ h, const T* __restrict__ mask,
                      T* __restrict__ h_l, T* __restrict__ h_r, int nz,
@@ -400,7 +420,8 @@ __global__ void __launch_bounds__(kEdgeThreads)
   if constexpr (DIR == DIR_X) {
     edges_x_tile<T, LIM>(h, mask, h_l, h_r, k0, nk, ny, nx, h_min);
   } else {
-    edges_y_tile<T, LIM, FOLD>(h, mask, h_l, h_r, k0, nk, ny, nx, h_min);
+    edges_y_tile<T, LIM, FOLD, HALO>(h, mask, h_l, h_r, k0, nk, ny, nx,
+                                     h_min);
   }
 }
 
@@ -492,7 +513,7 @@ inline int layers_per_block(long long tiles, int nz) {
 // the largest layer count the grid takes (its y dimension)
 constexpr int kMaxLayers = 65535;
 
-template <typename T, int DIR, bool FOLD>
+template <typename T, int DIR, bool FOLD, bool HALO = false>
 int edges_dir(const T* h, const T* mask, T* hl, T* hr, int nz, int ny,
               int nx, int limiter, T h_min, cudaStream_t s) {
   const long long tiles =
@@ -502,13 +523,13 @@ int edges_dir(const T* h, const T* mask, T* hl, T* hr, int nz, int ny,
   const dim3 grid((unsigned)tiles, (unsigned)ceil_div(nz, kc));
   const dim3 block = DIR == DIR_X ? dim3(kTileX) : dim3(kColsY, kStripsY);
   if (limiter == LIM_POS) {
-    ppm_edges_kernel<T, DIR, LIM_POS, FOLD><<<grid, block, 0, s>>>(
+    ppm_edges_kernel<T, DIR, LIM_POS, FOLD, HALO><<<grid, block, 0, s>>>(
         h, mask, hl, hr, nz, ny, nx, kc, h_min);
   } else if (limiter == LIM_CW84) {
-    ppm_edges_kernel<T, DIR, LIM_CW84, FOLD><<<grid, block, 0, s>>>(
+    ppm_edges_kernel<T, DIR, LIM_CW84, FOLD, HALO><<<grid, block, 0, s>>>(
         h, mask, hl, hr, nz, ny, nx, kc, h_min);
   } else if (limiter == LIM_SIMPLE2) {
-    ppm_edges_kernel<T, DIR, LIM_SIMPLE2, FOLD><<<grid, block, 0, s>>>(
+    ppm_edges_kernel<T, DIR, LIM_SIMPLE2, FOLD, HALO><<<grid, block, 0, s>>>(
         h, mask, hl, hr, nz, ny, nx, kc, h_min);
   } else {
     return (int)cudaErrorInvalidValue;
@@ -543,6 +564,25 @@ int edges(const T* h, const T* mask, T* hl, T* hr, int nz, int ny, int nx,
     return edges_dir<T, DIR_Y, false>(h, mask, hl, hr, nz, ny, nx, limiter,
                                       T(h_min), s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The y pass over the tile of a mesh rank (HALO): h (nz, ny+4, nx) and
+// the mask (ny+4, nx) with their two caller-filled halo rows on each
+// side, or with ``fold`` (the bottom rank row of a folded grid) ny+5 rows,
+// the fifth halo row the fold image of the global top row; h_l and h_r
+// are (nz, ny, nx).  Refused like edges().
+template <typename T>
+int edges_halo(const T* h, const T* mask, T* hl, T* hr, int nz, int ny,
+               int nx, int fold, int limiter, double h_min, void* stream) {
+  if ((long long)nz * ny * nx == 0) return 0;
+  if (nz > kMaxLayers || (long long)(ny + 5) * nx > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (fold)
+    return edges_dir<T, DIR_Y, true, true>(h, mask, hl, hr, nz, ny, nx,
+                                           limiter, T(h_min), s);
+  return edges_dir<T, DIR_Y, false, true>(h, mask, hl, hr, nz, ny, nx,
+                                          limiter, T(h_min), s);
 }
 
 template <typename T, int DIR, bool FOLD, bool FACE3D>
@@ -633,4 +673,22 @@ extern "C" int mom6_ppm_flux_f64(const double* h, const double* hl,
                                  int face3d, void* stream) {
   return flux<double>(h, hl, hr, face, dp, dm, u, dw, rem, uh, duh, nz, ny,
                       nx, dir, fold, face3d, stream);
+}
+
+extern "C" int mom6_ppm_edges_halo_f32(const float* h, const float* mask,
+                                       float* hl, float* hr, int nz,
+                                       int ny, int nx, int fold,
+                                       int limiter, double h_min,
+                                       void* stream) {
+  return edges_halo<float>(h, mask, hl, hr, nz, ny, nx, fold, limiter,
+                           h_min, stream);
+}
+
+extern "C" int mom6_ppm_edges_halo_f64(const double* h, const double* mask,
+                                       double* hl, double* hr, int nz,
+                                       int ny, int nx, int fold,
+                                       int limiter, double h_min,
+                                       void* stream) {
+  return edges_halo<double>(h, mask, hl, hr, nz, ny, nx, fold, limiter,
+                            h_min, stream);
 }

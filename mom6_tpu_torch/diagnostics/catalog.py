@@ -39,7 +39,7 @@ from mom6_tpu_torch.diagnostics import diagnostics as dg
 from mom6_tpu_torch.diagnostics.mld import diagnose_mld
 from mom6_tpu_torch.diagnostics.wave_speed import _n2_dz, wave_speed
 from mom6_tpu_torch.framework.arith import csqrt, sdiv, vcumsum, vsum
-from mom6_tpu_torch.framework.stencil import im1, ip1, jp1
+from mom6_tpu_torch.framework.stencil import im1, ip1, jm1, jp1
 from mom6_tpu_torch.physics.lateral import meke
 
 __all__ = ["CatalogEntry", "DiagContext", "CATALOG", "resolve", "serve",
@@ -251,8 +251,8 @@ def _rd1(c):
     transition, cg1 / sqrt(f^2 + 2 beta cg1) (MOM_lateral_mixing_coeffs)."""
     f_q = c.G.CoriolisBu
     f_h = 0.25 * torch.abs(
-        f_q + torch.roll(f_q, 1, -1) + torch.roll(f_q, 1, -2)
-        + torch.roll(torch.roll(f_q, 1, -1), 1, -2))
+        f_q + im1(f_q) + jm1(f_q)
+        + jm1(im1(f_q)))
     beta = getattr(c.G, "beta", None)
     if beta is None:
         beta = 2.3e-11          # a generic midlatitude value

@@ -80,8 +80,8 @@ def extract_surface_state(state, G, GV, *, hmix_sfc: float = 0.0,
     else:
         eta = vsum(h) - G.bathyT
     if hmix_uv_sfc > 0.0:
-        h_u = 0.5 * (h + torch.roll(h, -1, -1))
-        h_v = 0.5 * (h + torch.roll(h, -1, -2))
+        h_u = 0.5 * (h + ip1(h))
+        h_v = 0.5 * (h + jp1(h))
         u_f = _top_average(state.u, h_u, hmix_uv_sfc)
         v_f = _top_average(state.v, h_v, hmix_uv_sfc)
     else:

@@ -18,6 +18,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from mom6_tpu_torch.framework.stencil import refuse_on_ranks
+
 __all__ = ["worst_cfl_dossier", "format_dossier"]
 
 
@@ -27,6 +29,7 @@ def _column(a, j: int, i: int) -> list:
 
 def worst_cfl_dossier(state, G, dt: float) -> Dict:
     """The worst advective-CFL velocity point and its column state."""
+    refuse_on_ranks("the truncation dossier (point_accel)")
     cfl_u = state.u.double().abs() * dt * G.IdxCu.double()
     cfl_v = state.v.double().abs() * dt * G.IdyCv.double()
     if float(cfl_u.max()) >= float(cfl_v.max()):

@@ -8,6 +8,12 @@ with order-invariant reproducing sums (the float64 runs' path);
 ``compute_stats_device`` sums on the state's device with
 framework/repro_sum.py::fixed_point_sum, order-invariant too, and copies
 only the scalars (the float32 runs' path).
+
+On a mesh (parallel/mesh.py) both take the rank's tiles: the exact sums
+all-reduce their integer limbs, the bounds and ``max_CFL`` are
+all-reduce MAXima, and the host path's area-mean interfaces (a plain
+float64 sum, as the reference's) are summed over the assembled global
+fields, so that every number is the one-rank number to the bit.
 """
 
 from __future__ import annotations
@@ -19,7 +25,9 @@ import numpy as np
 import torch
 
 from mom6_tpu_torch.framework.arith import vcumsum
-from mom6_tpu_torch.framework.repro_sum import (fixed_point_sum,
+from mom6_tpu_torch.framework.stencil import ip1, jp1
+from mom6_tpu_torch.framework import stencil
+from mom6_tpu_torch.framework.repro_sum import (fixed_point_sum, global_max,
                                                 reproducing_sum)
 
 __all__ = ["compute_stats", "compute_stats_device", "format_stats_line",
@@ -46,8 +54,9 @@ def compute_stats(state, G, GV, dt: float,
 
     mass = reproducing_sum(h * area[None], scale=GV.rho0)
 
-    h_u = 0.5 * (h + np.roll(h, -1, axis=-1))
-    h_v = 0.5 * (h + np.roll(h, -1, axis=-2))
+    h_t = state.h.detach().to(torch.float64)
+    h_u = _np(0.5 * (h_t + ip1(h_t)))
+    h_v = _np(0.5 * (h_t + jp1(h_t)))
     mu = _np(G.mask2dCu, f64)
     mv = _np(G.mask2dCv, f64)
     ke_terms = 0.5 * GV.rho0 * area[None] * (
@@ -58,17 +67,18 @@ def compute_stats(state, G, GV, dt: float,
     gp = _np(GV.g_prime, f64)
     csum_below = np.cumsum(h[::-1], axis=0)[::-1]
     e = csum_below - depth[None]
-    wet = area.sum()
-    e_rest = (e * area[None]).sum(axis=(1, 2), keepdims=True) / max(wet,
-                                                                    1e-30)
+    e_area, area_all = _whole(e * area[None]), _whole(area)
+    wet = area_all.sum()
+    e_rest = e_area.sum(axis=(1, 2), keepdims=True) / max(wet, 1e-30)
     ape_terms = 0.5 * GV.rho0 * gp[:, None, None] * (e - e_rest) ** 2 \
         * area[None]
     ape = reproducing_sum(ape_terms * _np(G.mask2dT)[None])
 
     idx = _np(G.IdxT, f64)
     idy = _np(G.IdyT, f64)
-    cfl = max(float(np.max(np.abs(u) * dt * idx[None])),
-              float(np.max(np.abs(v) * dt * idy[None])))
+    cfl = global_max(np.array(
+        [np.max(np.abs(u) * dt * idx[None]),
+         np.max(np.abs(v) * dt * idy[None])]))
 
     out = {"mass": mass, "KE": ke, "APE": ape, "energy": ke + ape,
            "max_CFL": cfl}
@@ -82,6 +92,15 @@ def compute_stats(state, G, GV, dt: float,
     return out
 
 
+def _whole(a):
+    """The global field of a tile on the active mesh (``a`` itself off a
+    mesh), as float64 numpy."""
+    mesh = stencil._MESH
+    if mesh is None:
+        return a
+    return mesh.assemble(torch.from_numpy(np.ascontiguousarray(a))).numpy()
+
+
 def compute_stats_device(state, G, GV, dt: float,
                          cp: float = _CP_DEFAULT) -> Dict[str, float]:
     """The numbers of :func:`compute_stats` summed on the state's device
@@ -92,15 +111,15 @@ def compute_stats_device(state, G, GV, dt: float,
     (ny, nx).  Only the scalars leave the device."""
     h, u, v = state.h, state.u, state.v
     area = G.areaT * G.mask2dT
-    max_area = float(G.areaT.max())
-    max_depth = float(G.bathyT.max())
+    max_area = global_max(G.areaT)
+    max_depth = global_max(G.bathyT)
     h_bound = 4.0 * max(max_depth, 1.0)
     u_bound = 20.0                          # CFL-truncated long before this
 
     mass = GV.rho0 * fixed_point_sum(h * area[None],
                                      max_mag=h_bound * max_area)
-    h_u = 0.5 * (h + torch.roll(h, -1, -1))
-    h_v = 0.5 * (h + torch.roll(h, -1, -2))
+    h_u = 0.5 * (h + ip1(h))
+    h_v = 0.5 * (h + jp1(h))
     ke_terms = 0.5 * GV.rho0 * area[None] * (
         h_u * u * u * G.mask2dCu[None] + h_v * v * v * G.mask2dCv[None])
     ke = fixed_point_sum(
@@ -114,7 +133,7 @@ def compute_stats_device(state, G, GV, dt: float,
     e_rest = fixed_point_sum(e * area[None], max_mag=e_bound * max_area,
                              dims=(1, 2)) / torch.clamp(wet, min=1e-30)
     dev = (e - e_rest[:, None, None]) * G.mask2dT[None]
-    gp_max = float(GV.g_prime.max())
+    gp_max = float(GV.g_prime.max())            # (nz,): on every rank
     ape_terms = 0.5 * GV.rho0 * gp[:, None, None] * dev * dev * area[None]
     ape = fixed_point_sum(
         ape_terms,
@@ -122,6 +141,8 @@ def compute_stats_device(state, G, GV, dt: float,
 
     cfl = torch.maximum(torch.amax(torch.abs(u) * dt * G.IdxT[None]),
                         torch.amax(torch.abs(v) * dt * G.IdyT[None]))
+    if stencil._MESH is not None:
+        cfl = stencil._MESH.all_max(cfl)
     out = {"mass": mass, "KE": ke, "APE": ape, "energy": ke + ape,
            "max_CFL": cfl}
     if state.T is not None:

@@ -66,11 +66,15 @@ the DOME inflow (its LINEAR EOS is fixed at -0.2), is read wherever it is
 set and only -0.2 is accepted elsewhere.  With ``doc_dir`` the parameters
 read are written out as ``MOM_parameter_doc.all`` and ``.short`` there.
 
-Every other switch that the reference's function reads is listed in
-:data:`_INERT` with the only value the port accepts for it (the
-reference's default); a file that sets it otherwise raises
-``NotImplementedError`` naming the key (``ENERGETICS_SFC_PBL = True``,
-say).  A key that this module does not know raises ``ValueError``.
+Every switch that the reference's function reads is read here too;
+:data:`_INERT` would list one the port does not have, with the only
+value it accepts (none is left).  A key that this module does not know
+raises ``ValueError``.
+
+With ``mesh`` (parallel/mesh.py) the model is built whole on the host
+and each rank keeps its tile on the mesh's device
+(parallel/mesh.py::shard_model); an option whose whole-domain work is
+not decomposed over ranks raises NotImplementedError there, naming it.
 
 Where the supergrid file of a mosaic is missing, the pair is generated
 in memory (grid/tripolar.py) for the sizes of :data:`_GENERATED`, as
@@ -159,9 +163,7 @@ __all__ = ["build_model_from_params", "ModelSetup"]
 # switches the reference reads whose subsystem is not ported: the one
 # value accepted (the reference's default, which leaves it off) and the
 # module the reference logs it under
-_INERT = {
-    "BT_WIDE_HALO": (0, "MOM_barotropic"),
-}
+_INERT = {}
 # (NIGLOBAL, NJGLOBAL) -> arguments of grid/tripolar.py::make_mosaic for
 # the mosaics that are generated and not committed
 _GENERATED = {(720, 400): dict(nx=720, ny_reg=336, ny_cap=64)}
@@ -183,7 +185,7 @@ class ModelSetup(NamedTuple):
 
 
 # the barotropic switches, which the reference reads in split mode only
-# (the two drags with the barotropic parameters, BT_WIDE_HALO in _INERT)
+# (with the barotropic parameters)
 _SPLIT_ONLY = ("BT_LIN_DRAG", "BT_CDRAG", "BT_WIDE_HALO")
 
 
@@ -1194,12 +1196,26 @@ def _ice_shelf(pf, G, gv, state, use_thermo, eos_name, dtype, device,
 def build_model_from_params(pf: ParamFile, *, dtype=torch.float32,
                             device=DEFAULT_DEVICE,
                             input_dir: Optional[str] = None,
-                            doc_dir: Optional[str] = None) -> ModelSetup:
+                            doc_dir: Optional[str] = None,
+                            mesh=None) -> ModelSetup:
     """The model that ``pf`` describes, on ``device`` (the card unless
     the caller asks for the CPU).  ``input_dir`` is where INPUTDIR-relative
     files are looked for (default: ``doc_dir``, else the directory of the
     parameter file); with ``doc_dir`` the parameter documentation is
-    written there."""
+    written there.  With ``mesh`` (parallel/mesh.py) the model is built
+    whole on the host and this rank's tile is returned on the mesh's
+    device (``device`` is not used)."""
+    if mesh is not None:
+        from mom6_tpu_torch.parallel.mesh import shard_model, shard_over
+        ms = build_model_from_params(pf, dtype=dtype, device="cpu",
+                                     input_dir=input_dir, doc_dir=doc_dir)
+        G, gv, st, p, f = shard_model(mesh, ms.grid, ms.vgrid, ms.state,
+                                      ms.params, ms.forcing)
+        provider = ms.forcing_provider
+        if provider is not None:
+            whole = provider
+            provider = lambda t: shard_over(mesh, whole(t))   # noqa: E731
+        return ModelSetup(G, gv, st, p, f, pf, forcing_provider=provider)
     device = resolve_device(device)
     input_dir = input_dir or doc_dir
     _check_inert(pf)
@@ -1251,7 +1267,16 @@ def build_model_from_params(pf: ParamFile, *, dtype=torch.float32,
                                              default=0.9, module=m),
                       ice_strength_length=pf.get(
                           "ICE_LENGTH_DYN_PSURF", float, default=1.0e4,
-                          units="m", module=m))
+                          units="m", module=m),
+                      wide_halo=pf.get(
+                          "BT_WIDE_HALO", int, default=0, module=m,
+                          desc="March-inward barotropic halo width "
+                          "(BT_HALO_SIZE analogue): each rank's tile "
+                          "carries an N-cell rim and exchanges once per "
+                          "N/2 substeps instead of at every shift. 0 keeps "
+                          "the dense path; -1 = AUTO (width from the mesh "
+                          "and the tile shape, off on one rank); takes "
+                          "effect on a mesh of ranks (parallel/mesh.py)"))
     else:
         # the unsplit steppers: no barotropic solver
         bt = BTParams(nstep=1, nfilter=0)

@@ -59,6 +59,7 @@ from mom6_tpu_torch.diagnostics.sum_output import (BudgetAudit, StatsWriter,
                                                    compute_stats_device,
                                                    format_stats_line,
                                                    tracer_stocks)
+from mom6_tpu_torch.framework import stencil
 from mom6_tpu_torch.framework import time_manager as tm
 from mom6_tpu_torch.framework.containers import tensor_fields
 from mom6_tpu_torch.framework.device import resolve_device
@@ -166,7 +167,9 @@ def run_segment(state, G, GV, params, forces, *, n_steps: int,
         stepper = make_stepper(G, GV, params, forces,
                                steps_per_call=stats_interval)
         dt, per_step = params.dt, 1
-    writer = StatsWriter(stats_path) if stats_path else None
+    # on a mesh of ranks (parallel/mesh.py) only the first rank writes
+    lead = stencil._MESH is None or stencil._MESH.rank == 0
+    writer = StatsWriter(stats_path) if stats_path and lead else None
     n_calls = n_steps // stats_interval
     t0 = time.time()
     with torch.inference_mode():
@@ -179,7 +182,7 @@ def run_segment(state, G, GV, params, forces, *, n_steps: int,
             tdays = step * dt / 86400.0
             if writer:
                 writer.write(step, tdays, s)
-            if verbose:
+            if verbose and lead:
                 print(format_stats_line(step, tdays, s))
     elapsed = time.time() - t0
     return state, elapsed
@@ -288,6 +291,7 @@ def _kernel_counters() -> dict:
             "ppm_flux_y": (cppm.merid_flux, "launches"),
             "ppm_edges_y_fold": (cppm.merid_edges, "fold_launches"),
             "ppm_flux_y_fold": (cppm.merid_flux, "fold_launches"),
+            "ppm_edges_y_halo": (cppm.merid_edges, "halo_launches"),
             "remap": (remap_columns_multi, "launches"),
             "remap_npoly5": (remap_columns_multi, "quartic_launches")}
 

@@ -13,6 +13,9 @@ One counter-clockwise quarter turn, (x, y) -> (-y, x):
   price of the non-symmetric staggering);
 * q (the north-east corner of (j, i)) maps to the north-east corner of
   cell (i, ny-2-j).
+
+The rotation turns whole fields: off a mesh of ranks only (on a mesh,
+gather the tiles first, parallel/mesh.py::gather).
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import torch
 
 from mom6_tpu_torch.core.state import OceanState
 from mom6_tpu_torch.framework.arith import rdiv
+from mom6_tpu_torch.framework.stencil import refuse_on_ranks
 
 __all__ = ["rotate_scalar", "rotate_uv", "unrotate_scalar", "unrotate_uv",
            "rotate_state", "rotate_grid"]
@@ -29,10 +33,12 @@ __all__ = ["rotate_scalar", "rotate_uv", "unrotate_scalar", "unrotate_uv",
 def rotate_scalar(a):
     """One counter-clockwise quarter turn of an (..., ny, nx) h-point
     field, contiguous (the card's kernels take contiguous fields)."""
+    refuse_on_ranks("array_transform's quarter turn")
     return torch.flip(torch.swapaxes(a, -1, -2), dims=(-1,)).contiguous()
 
 
 def unrotate_scalar(a):
+    refuse_on_ranks("array_transform's quarter turn")
     return torch.swapaxes(torch.flip(a, dims=(-1,)), -1, -2).contiguous()
 
 

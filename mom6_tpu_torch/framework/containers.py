@@ -11,7 +11,7 @@ import dataclasses
 
 import torch
 
-__all__ = ["TensorDataclass", "tensor_fields", "fields_equal"]
+__all__ = ["TensorDataclass", "tensor_fields", "fields_equal", "tree_map"]
 
 
 class TensorDataclass:
@@ -59,3 +59,25 @@ def fields_equal(a, b) -> bool:
         elif x != y:
             return False
     return True
+
+
+def tree_map(fn, *trees):
+    """``fn`` over the tensors of like containers (dataclasses,
+    NamedTuples, dicts, tuples and lists); None stays None and any other
+    leaf is the first tree's."""
+    t = trees[0]
+    if t is None:
+        return None
+    if isinstance(t, torch.Tensor):
+        return fn(*trees)
+    if isinstance(t, dict):
+        return {k: tree_map(fn, *(x[k] for x in trees)) for k in t}
+    if dataclasses.is_dataclass(t) and not isinstance(t, type):
+        return dataclasses.replace(t, **{
+            f.name: tree_map(fn, *(getattr(x, f.name) for x in trees))
+            for f in dataclasses.fields(t) if f.init})
+    if isinstance(t, tuple) and hasattr(t, "_fields"):
+        return type(t)(*(tree_map(fn, *xs) for xs in zip(*trees)))
+    if isinstance(t, (tuple, list)):
+        return type(t)(tree_map(fn, *xs) for xs in zip(*trees))
+    return t

@@ -33,6 +33,7 @@ import torch
 
 from mom6_tpu_torch.ale.regridding import build_rho_grid
 from mom6_tpu_torch.ale.remapping import PLM, remap_column
+from mom6_tpu_torch.framework.stencil import refuse_on_ranks
 from mom6_tpu_torch.io.netcdf import NCWriter
 
 __all__ = ["DiagMediator", "parse_diag_table", "DiagTable"]
@@ -241,6 +242,7 @@ class DiagMediator:
         """Accumulate one sample.  3-D fields on a diagnostic vertical
         coordinate are remapped using the grids from the last
         ``update_remap_grids`` (or ``h`` if passed explicitly)."""
+        refuse_on_ranks("the diag_table's output")
         d = self._diags[handle]
         arr = _host(data)
         if d.vertical_coord != "native":

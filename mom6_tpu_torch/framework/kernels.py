@@ -51,6 +51,10 @@ _SIGNATURES = {
     # h, mask, h_L, h_R, nz, ny, nx, dir, fold, limiter, h_min, stream
     "mom6_ppm_edges": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                        ctypes.c_double, _P],
+    # h, mask, h_L, h_R, nz, ny, nx, fold, limiter, h_min, stream (the y
+    # pass over a mesh tile with its halo rows)
+    "mom6_ppm_edges_halo": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            ctypes.c_double, _P],
     # h, h_L, h_R, face, d_p, d_m, u, dw, rem, uh, duhdu, nz, ny, nx, dir,
     # fold, face3d, stream
     "mom6_ppm_flux": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

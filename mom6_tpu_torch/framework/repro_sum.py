@@ -27,6 +27,11 @@ in int32, which is exact only below 2^23 elements (a low byte is below
 default of ``torch.sum`` on an int32 tensor), exact at any size a card
 holds, and below 2^23 elements the result equals the reference's
 bitwise.
+
+On a mesh (parallel/mesh.py), where the arrays are the rank's tiles, both
+sums all-reduce their integer limbs (an int64 SUM) before they combine
+them, so that the result is the one-rank sum to the bit at any rank
+count.
 """
 
 from __future__ import annotations
@@ -34,7 +39,39 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["reproducing_sum", "fixed_point_sum"]
+from mom6_tpu_torch.framework import stencil
+
+__all__ = ["reproducing_sum", "fixed_point_sum", "global_max",
+           "global_min"]
+
+
+def global_max(x) -> float:
+    """The largest value of a tensor or array over every tile of the
+    active mesh (of ``x`` alone off a mesh), as a float."""
+    m = float(np.max(x.detach().cpu().numpy() if torch.is_tensor(x)
+                     else np.asarray(x)))
+    mesh = stencil._MESH
+    if mesh is None:
+        return m
+    return float(mesh.all_max(torch.tensor([m], dtype=torch.float64))[0])
+
+
+def global_min(x) -> float:
+    """:func:`global_max` for the smallest value."""
+    m = float(np.min(x.detach().cpu().numpy() if torch.is_tensor(x)
+                     else np.asarray(x)))
+    mesh = stencil._MESH
+    if mesh is None:
+        return m
+    return float(mesh.all_min(torch.tensor([m], dtype=torch.float64))[0])
+
+
+def _carry(limbs):
+    for j in range(_NLIMB - 1, 0, -1):
+        carry = limbs[j] >> _BITS
+        limbs[j] -= carry << _BITS
+        limbs[j - 1] += carry
+    return limbs
 
 _NLIMB = 6
 _BITS = 46
@@ -50,10 +87,10 @@ def _exact_int_sum(c: np.ndarray) -> int:
 
 
 def reproducing_sum(x, scale: float = 1.0) -> float:
-    """Exact order-invariant sum of a real numpy array."""
+    """Exact order-invariant sum of a real numpy array (of every tile of
+    the active mesh)."""
     x = np.asarray(x, dtype=np.float64).ravel() * scale
-    if x.size == 0:
-        return 0.0
+    mesh = stencil._MESH
     limbs = [0] * _NLIMB
     r = x / (2.0 ** _TOP_EXP)
     c = np.empty_like(r)
@@ -62,10 +99,14 @@ def reproducing_sum(x, scale: float = 1.0) -> float:
         np.floor(r, out=c)
         limbs[j] += _exact_int_sum(c.astype(np.int64))
         r -= c
-    for j in range(_NLIMB - 1, 0, -1):
-        carry = limbs[j] >> _BITS
-        limbs[j] -= carry << _BITS
-        limbs[j - 1] += carry
+    limbs = _carry(limbs)
+    if mesh is not None:
+        # limbs 1.. below 2^46 after the carry: their sums over the ranks
+        # cannot overflow, and the carry is canonical again after them
+        got = mesh.all_sum(torch.tensor(limbs, dtype=torch.int64))
+        limbs = _carry([int(v) for v in got.tolist()])
+    elif x.size == 0:
+        return 0.0
     total = 0.0
     for j in range(_NLIMB):
         total += float(limbs[j]) * 2.0 ** (_TOP_EXP - (j + 1) * _BITS)
@@ -78,10 +119,20 @@ def fixed_point_sum(x: torch.Tensor, max_mag: float, n_limbs: int = 4,
     device, as a tensor of ``x``'s dtype; the dimensions left over are a
     batch of independent sums, each the one the reference's function
     gives for that slice.  ``max_mag`` must bound ``max(|x|)``: the sum is
-    exact to ``n_limbs * bits`` bits below the power of two above it."""
+    exact to ``n_limbs * bits`` bits below the power of two above it (on
+    a mesh, a bound over every tile).  On a mesh a sum over the plane's
+    axes adds the digits' sums of every tile."""
     dtype = x.dtype
     top = float(2.0 ** np.ceil(np.log2(max_mag)))
-    dims = tuple(range(x.dim())) if dims is None else tuple(dims)
+    dims = tuple(range(x.dim())) if dims is None else tuple(
+        d % x.dim() for d in dims)
+    mesh = stencil._MESH
+    plane = {x.dim() - 2, x.dim() - 1} & set(dims)
+    if mesh is not None and len(plane) == 1:
+        raise ValueError("fixed_point_sum: a sum along one axis of the "
+                         "plane is not decomposed on a mesh")
+    if not plane:
+        mesh = None                     # a sum within each column
     r = (x / top).to(torch.float32)
     limbs = []
     for _ in range(n_limbs):
@@ -94,6 +145,9 @@ def fixed_point_sum(x: torch.Tensor, max_mag: float, n_limbs: int = 4,
     # the high and low bytes of every digit, summed exactly in int64
     s_hi = torch.sum(limbs >> 8, dim=red)       # (n_limbs, *batch)
     s_lo = torch.sum(limbs & 0xFF, dim=red)
+    if mesh is not None:
+        s_hi = mesh.all_sum(s_hi)
+        s_lo = mesh.all_sum(s_lo)
     total = torch.zeros(s_hi.shape[1:], dtype=torch.float32,
                         device=x.device)
     comp = torch.zeros_like(total)

@@ -50,6 +50,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from mom6_tpu_torch.framework.stencil import refuse_on_ranks
 from mom6_tpu_torch.io.netcdf import NCWriter, read_nc
 
 __all__ = ["RestartRegistry", "TRACER_PREFIX", "restart_differences"]
@@ -153,6 +154,7 @@ class RestartRegistry:
         """Write the restart; ``io_layout=(jy, ix)`` splits every field's
         trailing (ny, nx) plane into jy*ix tiles written as files
         ``path.NNNN``, each tagged with its tile origin."""
+        refuse_on_ranks("the restart")
         arrays = self._arrays(state)
         if io_layout is not None and tuple(io_layout) != (1, 1):
             self._save_distributed(path, arrays, time_seconds, step,
@@ -203,6 +205,7 @@ class RestartRegistry:
         """(state, time_seconds, step) with every registered field the
         file holds put on the template's device in its dtype; a missing
         mandatory field raises KeyError."""
+        refuse_on_ranks("the restart")
         if not os.path.exists(path) and os.path.exists(path + ".0000"):
             data = self._read_distributed(path)
         else:

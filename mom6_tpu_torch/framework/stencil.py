@@ -6,6 +6,14 @@ v-points the NORTH face and q-points the NORTHEAST corner of cell (j, i).
 Every shift is a circular ``torch.roll``; solid walls are enforced by the
 face masks, and the tripolar northern fold by the ghost rows of
 :func:`fold_ghost`.
+
+While a mesh of parallel/mesh.py is active (``with mesh:``) the arrays
+are that rank's tiles of the global fields and every shift along a
+split axis takes the neighbour rank's edge row or column through one
+exchange, so that each tile sees what the global roll gives it; the
+fold's ghost row comes from the partner rank, and :func:`fold_ghost`
+gives None on a tile that does not hold the global top row
+(:func:`holds_top_row`).
 """
 
 from __future__ import annotations
@@ -13,24 +21,52 @@ from __future__ import annotations
 import torch
 
 __all__ = ["ip1", "im1", "jp1", "jm1", "jm1_s0", "jp1_sn", "fold_ghost",
-           "fold_kinds"]
+           "fold_kinds", "holds_top_row", "holds_bottom_row",
+           "refuse_on_ranks"]
 
 _X = -1  # i axis
 _Y = -2  # j axis
 
+# the active tile mesh (parallel/mesh.py::Mesh), set by ``with mesh:``
+_MESH = None
+
+
+def holds_top_row() -> bool:
+    """Whether the arrays hold the global top row (always, off a mesh)."""
+    return _MESH is None or _MESH.top
+
+
+def holds_bottom_row() -> bool:
+    """Whether the arrays hold the global row 0 (always, off a mesh)."""
+    return _MESH is None or _MESH.bottom
+
+
+def refuse_on_ranks(feature: str) -> None:
+    """Raise NotImplementedError naming ``feature`` while a mesh is
+    active: host work that needs a whole field refuses a tile."""
+    if _MESH is not None:
+        raise NotImplementedError(
+            f"{feature} is not decomposed over ranks: run it on one rank")
+
 
 def ip1(a):
     """Value at (j, i+1)."""
+    if _MESH is not None:
+        return _MESH.roll_x(a, -1)
     return torch.roll(a, -1, dims=_X)
 
 
 def im1(a):
     """Value at (j, i-1)."""
+    if _MESH is not None:
+        return _MESH.roll_x(a, 1)
     return torch.roll(a, 1, dims=_X)
 
 
 def jm1(a):
     """Value at (j-1, i)."""
+    if _MESH is not None:
+        return _MESH.roll_y(a, 1)
     return torch.roll(a, 1, dims=_Y)
 
 
@@ -38,16 +74,27 @@ def jp1(a, fold=None):
     """Value at (j+1, i).  ``fold`` is None for periodic or walled axes,
     or a staggering kind (see :func:`fold_ghost`) for a tripolar
     northern fold, whose top-row neighbour is the fold's ghost row."""
+    if _MESH is not None:
+        return _MESH.roll_y(a, -1, fold)
     r = torch.roll(a, -1, dims=_Y)
     if fold is None:
         return r
-    r[..., -1, :] = fold_ghost(a, fold)    # r is a fresh tensor
+    r[..., -1, :] = fold_ghost_global(a, fold)    # r is a fresh tensor
     return r
 
 
 def fold_ghost(a, kind):
-    """The northern-fold ghost row of ``a``: the top edge is identified
-    with itself under i -> nx-1-i, vectors change sign.
+    """The northern-fold ghost row of ``a`` (see
+    :func:`fold_ghost_global`); on a mesh, from the partner rank, and
+    None on a tile that does not hold the top row."""
+    if _MESH is not None:
+        return _MESH.fold_ghost(a, kind)
+    return fold_ghost_global(a, kind)
+
+
+def fold_ghost_global(a, kind):
+    """The northern-fold ghost row of the whole-width ``a``: the top edge
+    is identified with itself under i -> nx-1-i, vectors change sign.
 
       "h"  ghost[i] =  a[ny-1, nx-1-i]    "u"  ghost[i] = -a[ny-1, nx-2-i]
       "us" ghost[i] =  a[ny-1, nx-2-i]    "v"  ghost[i] = -a[ny-2, nx-1-i]
@@ -77,20 +124,25 @@ def fold_ghost(a, kind):
 def jp1_sn(a_s, a_n, fold=None):
     """jp1 of a SOUTH/NORTH edge pair: under the fold the pair swaps.
     Returns (jp1(a_s), jp1(a_n))."""
+    if _MESH is not None:
+        if fold is None:
+            return _MESH.roll_y(a_s, -1), _MESH.roll_y(a_n, -1)
+        return (_MESH.roll_y(a_s, -1, "h", ghost_src=a_n),
+                _MESH.roll_y(a_n, -1, "h", ghost_src=a_s))
     rs = torch.roll(a_s, -1, dims=_Y)
     rn = torch.roll(a_n, -1, dims=_Y)
     if fold is None:
         return rs, rn
-    rs[..., -1, :] = fold_ghost(a_n, "h")
-    rn[..., -1, :] = fold_ghost(a_s, "h")
+    rs[..., -1, :] = fold_ghost_global(a_n, "h")
+    rn[..., -1, :] = fold_ghost_global(a_s, "h")
     return rs, rn
 
 
 def jm1_s0(a, fold=None):
     """jm1 of a y-face flux with a solid southern wall: with a fold the
     wrapped row read at j=0 is zeroed."""
-    r = torch.roll(a, 1, dims=_Y)
-    if not fold:
+    r = jm1(a)
+    if not fold or not holds_bottom_row():
         return r
     r[..., 0, :] = 0.0
     return r

@@ -91,11 +91,8 @@ __all__ = ["export", "load_grid", "load_vgrid", "load_state",
            "load_obc_data", "load_bt_cont", "load_iob", "load_all"]
 
 # reference fields with no counterpart in the port that may carry a
-# value: each only tunes a subsystem that is not ported (the wide-halo
-# subcycle), which the port rejects where it is switched on
-_DROPPED = {
-    "BTParams": {"halo_per_substep"},
-}
+# value (none: the wide-halo subcycle's are the port's too)
+_DROPPED = {}
 # reference fields whose value the port fixes as a constant: the
 # reference's value must be that constant
 _FIXED = {"OBCParams": {"rx_max": RX_MAX}}

@@ -27,7 +27,8 @@ import numpy as np
 import torch
 
 from mom6_tpu_torch.framework.arith import csqrt, rdiv, sdiv, vsum
-from mom6_tpu_torch.framework.stencil import im1, ip1, jm1
+from mom6_tpu_torch.framework.stencil import (holds_top_row, im1, ip1, jm1,
+                                              jm1_s0, jp1)
 
 __all__ = ["InternalTidesParams", "init_int_tide_energy",
            "step_internal_tides"]
@@ -98,13 +99,13 @@ def step_internal_tides(En, tke_input, cn, G, GV, dt,
                          "number of angle bins")
 
     def jp1_f(a):
-        r = torch.roll(a, -1, dims=-2)
         if not fold:
-            return r
-        g = torch.flip(a[..., -1, :], dims=(-1,))
-        if g.shape[-2] > 1:              # an angle axis: rotate by pi
-            g = torch.roll(g, g.shape[-2] // 2, dims=-2)
-        r[..., -1, :] = g
+            return jp1(a)
+        r = jp1(a, "h")
+        if a.shape[-3] > 1 and holds_top_row():
+            # an angle axis: the ghost row's bins rotate by pi
+            r[..., -1, :] = torch.roll(r[..., -1, :], a.shape[-3] // 2,
+                                       dims=-2)
         return r
 
     cos_t, sin_t = _direction_tables(na, dtype, device)
@@ -155,11 +156,8 @@ def step_internal_tides(En, tke_input, cn, G, GV, dt,
     face_y = G.dxCv * G.mask2dCv
     flux = face_y * (torch.clamp(cgy, min=0.0) * En
                      + torch.clamp(cgy, max=0.0) * jp1_f(En))
-    flux_s = jm1(flux)
-    if fold:
-        # the southern edge of a tripolar grid is a wall
-        flux_s[..., 0, :] = 0.0
-    div = div + G.IareaT * (flux - flux_s)
+    # the southern edge of a tripolar grid is a wall
+    div = div + G.IareaT * (flux - jm1_s0(flux, fold))
     En = torch.clamp(En - dt * div, min=0.0)
 
     # the losses

@@ -12,6 +12,14 @@ at i = 0 does not reach i = nx - 1 (a fault of the reference, matched;
 ROADMAP queue 3).  ``synthetic_sst_obs`` draws with numpy's
 ``default_rng(seed)`` on the host, so both packages draw the same
 observations.
+
+Over ranks (``emesh``, parallel/ensemble.py::ensemble_mesh) each rank
+holds its member's tile: the analysis gathers every member's tile over
+the ranks that hold the same tile, takes each observed element from the
+rank whose tile holds it (the observation indices stay global), and
+runs the update on its tile with the elements' global places; it keeps
+its own member's increments.  The result is the one-process analysis to
+the bit.
 """
 
 from __future__ import annotations
@@ -36,12 +44,17 @@ class ODAParams:
 
 
 def oda_analysis(ens_state, obs_idx, obs_val, obs_var, G,
-                 p: ODAParams = ODAParams()):
+                 p: ODAParams = ODAParams(), emesh=None):
     """One analysis.  ``ens_state``: a state with a leading member axis
     (parallel/ensemble.py::stack_ensemble); ``obs_idx``: (n_obs,)
     indices into the flattened assimilated vector (T, then S), a surface
     T observation at (j, i) being j*nx + i.  Returns (IncrementalUpdate
-    with (ne, nz, ny, nx) increments, the (ne, n) analysed vector)."""
+    with (ne, nz, ny, nx) increments, the (ne, n) analysed vector).  With
+    ``emesh`` (see the module's note) ``ens_state`` is this rank's member
+    (a member axis of one) on its tile, and so are the results."""
+    if emesh is not None:
+        return _analysis_on_ranks(ens_state, obs_idx, obs_val, obs_var, G,
+                                  p, emesh)
     ens_T, ens_S = ens_state.T, ens_state.S
     ne = ens_T.shape[0]
     shape_T = tuple(ens_T.shape[1:])
@@ -64,6 +77,54 @@ def oda_analysis(ens_state, obs_idx, obs_val, obs_var, G,
     dT = dx[:, :n_t].reshape((ne,) + shape_T) * mask
     dS = dx[:, n_t:].reshape((ne,) + shape_T) * mask if p.assim_S else None
     return IncrementalUpdate(dT=dT, dS=dS, ramp_seconds=p.ramp_seconds), x_a
+
+
+def _analysis_on_ranks(ens_local, obs_idx, obs_val, obs_var, G, p, emesh):
+    """:func:`oda_analysis` of the members' tiles over ranks."""
+    mesh = emesh.spatial
+    ens_T = emesh.all_members(ens_local.T[0])
+    parts = [ens_T]
+    if p.assim_S:
+        parts.append(emesh.all_members(ens_local.S[0]))
+    ne = ens_T.shape[0]
+    nz, ty, tx = ens_T.shape[1:]
+    ny, nx = mesh.ny, mesh.nx
+    x_f = torch.cat([a.reshape(ne, -1) for a in parts], dim=1)
+    idx = np.asarray(obs_idx.cpu() if torch.is_tensor(obs_idx)
+                     else obs_idx).astype(np.int64)
+    # each observation's variable, level and column on the global grid
+    n_glob = nz * ny * nx
+    var, rest = np.divmod(idx, n_glob)
+    lev, col = np.divmod(rest, ny * nx)
+    jo, io = np.divmod(col, nx)
+    owner = (jo // ty) * mesh.shape[1] + io // tx
+    local = var * (nz * ty * tx) + lev * (ty * tx) \
+        + (jo % ty) * tx + io % tx
+    # the local index of the observed element on its owner (0 elsewhere)
+    mine = np.where(owner == mesh.rank, local, 0)
+
+    def observed(o, i, ens):
+        y = ens[:, int(mine[o])]
+        return mesh.broadcast_from(y, int(owner[o]))
+
+    coords = obs_coords = None
+    if p.eakf.loc_radius > 0.0:
+        jj, ii = np.mgrid[mesh.j0:mesh.j0 + ty, mesh.i0:mesh.i0 + tx]
+        c2 = np.stack([jj.ravel(), ii.ravel()], axis=-1).astype(np.float32)
+        coords = torch.from_numpy(c2).to(x_f.device).repeat(len(parts) * nz,
+                                                            1)
+        obs_coords = torch.from_numpy(np.stack(
+            [jo, io], axis=-1).astype(np.float32)).to(x_f.device)
+    x_a = eakf_update(x_f, mine, obs_val, obs_var, p.eakf, coords=coords,
+                      observed=observed, obs_coords=obs_coords)
+    m = emesh.member
+    dx = (x_a - x_f)[m:m + 1]
+    n_t = nz * ty * tx
+    mask = G.mask2dT[None, None]
+    dT = dx[:, :n_t].reshape((1, nz, ty, tx)) * mask
+    dS = dx[:, n_t:].reshape((1, nz, ty, tx)) * mask if p.assim_S else None
+    return (IncrementalUpdate(dT=dT, dS=dS, ramp_seconds=p.ramp_seconds),
+            x_a[m:m + 1])
 
 
 def synthetic_sst_obs(truth_T, mask, n_obs, noise_std, seed=0):

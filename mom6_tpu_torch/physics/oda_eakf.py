@@ -12,11 +12,15 @@ error variance r, in turn:
 The reference's ``lax.scan`` over the observations is a loop here: the
 observations' indices are host integers, so the loop queues its
 operations on the ensemble's device without a synchronisation.  Sums
-over the members add them in order (``vsum``), as XLA's reduction does;
-the regression ``yp @ xp`` is ``torch.matmul``, which the reference
-computes as a dot outside any Pallas kernel and whose order of adds is
-the BLAS library's: in float64 the update parts from the reference's by
-~1e-13 of it, in float32 by the conditioning of the sums.  Square roots
+over the members add them in order (``vsum``), as XLA's reduction does,
+the regression ``yp @ xp`` too (the reference's dot adds in the BLAS
+library's order: in float64 the update parts from the reference's by
+~1e-13 of it, in float32 by the conditioning of the sums); an ordered
+sum keeps each element's update independent of how the state vector is
+cut into tiles, so that the analysis on a mesh of ranks
+(physics/oda_driver.py) is the one-process analysis to the bit.  The
+observed element may come from elsewhere (``observed``: another rank's
+tile) with its grid place (``obs_coords``).  Square roots
 are ``framework/arith.py::csqrt``, ``x ** 2`` is ``x * x`` (JAX's
 integer_pow) and a division by a number divides once (``sdiv``).
 """
@@ -59,7 +63,8 @@ def _member_mean(x):
 
 def eakf_update(ens, obs_idx, obs_val, obs_var,
                 p: EAKFParams = EAKFParams(),
-                coords: Optional[torch.Tensor] = None):
+                coords: Optional[torch.Tensor] = None,
+                observed=None, obs_coords: Optional[torch.Tensor] = None):
     """The sequential EAKF over point observations.
 
     ens:      (ne, n) members of the flattened state;
@@ -68,7 +73,11 @@ def eakf_update(ens, obs_idx, obs_val, obs_var,
     obs_val:  (n_obs,) observed values;
     obs_var:  (n_obs,) observation error variances;
     coords:   optional (n, 2) grid coordinates of the state elements for
-              the Gaspari-Cohn localization (with p.loc_radius > 0).
+              the Gaspari-Cohn localization (with p.loc_radius > 0);
+    observed: optional ``observed(o, i, ens) -> (ne,)``, the members'
+              observed element of observation ``o`` (default ens[:, i]);
+    obs_coords: optional (n_obs, 2) coordinates of the observations
+              (default coords[i]).
 
     Returns the updated (ne, n) ensemble."""
     ne = ens.shape[0]
@@ -82,7 +91,7 @@ def eakf_update(ens, obs_idx, obs_val, obs_var,
     r_all = torch.as_tensor(obs_var, dtype=ens.dtype).to(ens.device)
     for o, i in enumerate(idx.tolist()):
         yo, r = yo_all[o], r_all[o]
-        y = ens[:, i]
+        y = ens[:, i] if observed is None else observed(o, i, ens)
         ybar = sdiv(vsum(y), ne)
         yp = y - ybar
         s = torch.clamp(sdiv(vsum(yp * yp), ne - 1), min=p.s_min)
@@ -91,9 +100,10 @@ def eakf_update(ens, obs_idx, obs_val, obs_var,
         shrink = csqrt(s_a / s)
         dy = (ybar_a - ybar) + (shrink - 1.0) * yp
         xp = ens - _member_mean(ens)
-        gain = sdiv(yp @ xp, ne - 1) / s
+        gain = sdiv(vsum(yp[:, None] * xp), ne - 1) / s
         if use_loc:
-            dc = coords - coords[i]
+            dc = coords - (coords[i] if obs_coords is None
+                           else obs_coords[o])
             d = csqrt(dc[:, 0] * dc[:, 0] + dc[:, 1] * dc[:, 1])
             gain = gain * gaspari_cohn(d, p.loc_radius)
         ens = ens + dy[:, None] * gain[None, :]

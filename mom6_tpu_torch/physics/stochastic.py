@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from mom6_tpu_torch.framework.random import normal, split
-from mom6_tpu_torch.framework.stencil import im1, ip1, jm1, jp1
+from mom6_tpu_torch.framework.stencil import fold_ghost, im1, ip1, jm1, jp1
 
 __all__ = ["SPPTParams", "ar1_pattern", "apply_sppt", "apply_skeb"]
 
@@ -80,8 +80,9 @@ def apply_skeb(u, v, pattern, ke_scale: float, G=None):
     fold row is made single-valued first (see the module's note)."""
     psi = pattern * ke_scale
     if G is not None and getattr(G, "fold_north", False):
-        image = torch.roll(torch.flip(psi[-1], dims=(-1,)), -1, dims=-1)
-        psi = torch.cat([psi[:-1], (0.5 * (psi[-1] + image))[None]])
+        image = fold_ghost(psi, "us")
+        if image is not None:
+            psi = torch.cat([psi[:-1], (0.5 * (psi[-1] + image))[None]])
     du = -(psi - jm1(psi))
     dv = psi - im1(psi)
     return u + du[None], v + dv[None]

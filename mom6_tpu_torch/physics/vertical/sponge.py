@@ -20,6 +20,7 @@ import torch
 from mom6_tpu_torch.framework.arith import rdiv
 from mom6_tpu_torch.framework.containers import (TensorDataclass,
                                                  fields_equal)
+from mom6_tpu_torch.framework.stencil import ip1, jp1
 
 __all__ = ["SpongeParams", "apply_sponge"]
 
@@ -57,8 +58,8 @@ def apply_sponge(state, dt, p: SpongeParams, G):
     if state.S is not None and p.S_ref is not None:
         out = out.replace(S=relax(state.S, p.S_ref))
     if p.sponge_uv:
-        wu = dt * 0.5 * (p.idamp + torch.roll(p.idamp, -1, -1)) * G.mask2dCu
-        wv = dt * 0.5 * (p.idamp + torch.roll(p.idamp, -1, -2)) * G.mask2dCv
+        wu = dt * 0.5 * (p.idamp + ip1(p.idamp)) * G.mask2dCu
+        wv = dt * 0.5 * (p.idamp + jp1(p.idamp)) * G.mask2dCv
         if p.u_ref is not None:
             out = out.replace(u=(state.u + wu[None] * p.u_ref)
                               / (1 + wu[None]))

@@ -149,8 +149,9 @@ def neutral_diffusion_surfaces(tr, h, T, S, G, GV, eos, khtr, dt, *,
         # the fold row also takes the deposit of its mirror partner; the
         # row-0 wrap is a solid southern wall on a tripolar grid
         r = jm1_s0(a, fold)
-        if fold:
-            r[..., -1, :] = r[..., -1, :] + fold_ghost(a, "h")
+        g = fold_ghost(a, "h") if fold else None
+        if g is not None:
+            r[..., -1, :] = r[..., -1, :] + g
         return r
 
     fe, re_ = exchange(ip1, im1, G.dyCu, G.IdxCu, G.mask2dCu)

@@ -141,21 +141,31 @@ def test_tracer_batch_names():
 
 # the ids "phillips" and "ts-benchmark" keep their names; every
 # THICKNESS_CONFIG of the reference and every TS_CONFIG (from_Z too) are
-# ported, so they hold a TOPO_CONFIG and BT_WIDE_HALO, still to port; so
-# does "generic-tracer": USE_generic_tracer (the NPZD package), CVMix
-# convection, the Zanna-Bolton closure, SPPT and SPLIT_RK2B are ported,
-# so it holds BT_WIDE_HALO's AUTO beside the spherical grid, still to
-# port
+# ported; "phillips" holds a TOPO_CONFIG still to port.  BT_WIDE_HALO is
+# ported (tests/test_torch_mesh.py runs it on ranks), so "ts-benchmark"
+# and "generic-tracer" (its AUTO beside the spherical grid) build, with
+# the reference's parameters (no match: a parity case)
 @pytest.mark.parametrize("text,match", [
     ("USE_REGIONAL_DYES = True\nNUM_DYE_TRACERS = 2\n"
      "DYE_SOURCE_MINLON = 1.0,2.0,3.0\n", "DYE_SOURCE_MINLON"),
     ("TOPO_CONFIG = spoon\n", "TOPO_CONFIG"),
-    ("BT_WIDE_HALO = 4\n", "BT_WIDE_HALO"),
-    ("GRID_CONFIG = spherical\nBT_WIDE_HALO = -1\n", "BT_WIDE_HALO"),
+    ("BT_WIDE_HALO = 4\n", None),
+    ("GRID_CONFIG = spherical\nBT_WIDE_HALO = -1\n", None),
 ], ids=["dye-lengths", "phillips", "ts-benchmark", "generic-tracer"])
 def test_build_rejects(text, match):
     """Lists of the wrong length raise ValueError, as in the reference;
-    what stays unported raises naming itself."""
+    what stays unported raises naming itself; what is ported (no
+    ``match``) builds the reference's parameters, BT_WIDE_HALO's width
+    among them."""
+    if match is None:
+        case = ("tracer_batch", text)
+        ref = ref_build(case, np.float32)
+        ms = port_build(case, torch.float32)
+        loaded = interop.load_params(interop.export(ref.params))
+        assert ms.params == loaded.replace(tfc=ms.params.tfc)
+        width = int(text.split("BT_WIDE_HALO = ")[1].split()[0])
+        assert ms.params.dyn.bt.wide_halo == width
+        return
     cfg = os.path.join(REPO, "configs", "tracer_batch", "MOM_input")
     exc = ValueError if match.startswith("DYE") else NotImplementedError
     with pytest.raises(exc, match=match):

@@ -16,7 +16,8 @@ The catalog's post on the small tripolar model is held card against CPU
 in float64.  The remap at PPM_H6's and P3M_H4's coefficients and
 init_tracer_from_z's remap from 102 levels are bitwise; HYBGEN, the SSA
 solve and the ice-only driver run on the card, held against the CPU in
-float64.
+float64.  The y edges' HALO form (the tile of a mesh rank) equals its
+plain version.
 """
 
 import functools
@@ -807,3 +808,27 @@ def test_ssa_and_ice_solo_on_the_card(cuda, tmp_path):
     ice_solo.main([str(tmp_path)])
     assert (tmp_path / "ice.stats").exists()
     assert (tmp_path / "ICE.res.nc").exists()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("variant", ["pos", "cw84", "simple2nd"])
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("ny,nx", [(12, 16), (37, 45)])
+def test_ppm_edges_halo_form_matches_plain(cuda, dtype, variant, fold, ny,
+                                           nx):
+    """The y edges' HALO form (the tile of a mesh rank: two caller-filled
+    halo rows on each side, with ``fold`` a fifth row holding the fold
+    image of the global top row) against ppm_edges_halo_plain: equal."""
+    mono, s2 = variant == "cw84", variant == "simple2nd"
+    rows = ny + 4 + int(fold)
+    rng = np.random.default_rng(ny + nx)
+    h = torch.tensor(0.5 + 50.0 * rng.uniform(size=(5, rows, nx)) ** 3,
+                     dtype=dtype, device=cuda)
+    mask = torch.tensor((rng.uniform(size=(rows, nx)) > 0.2).astype(float),
+                        dtype=dtype, device=cuda)
+    got = cppm._edges_halo_launch("halo", h, mask, ny, 1e-10, mono, s2,
+                                  fold)
+    want = cppm.ppm_edges_halo_plain(h, mask, 1e-10, mono, s2, fold)
+    for g, w in zip(got, want):
+        assert g.shape == (5, ny, nx)
+        assert torch.equal(g, w)

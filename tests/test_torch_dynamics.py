@@ -210,22 +210,40 @@ def test_btstep_parity(basin, x_first, nsteps):
     _close(ref, got, tol=1e-4)
 
 
-# the ids "dynamic_psurf" and "sal_scalar" keep their names; the dynamic
-# surface pressure (tests/test_torch_coupled.py) and the scalar SAL
-# (tests/test_torch_stoch_tides.py) are ported, so they hold fixed wide
-# halos, still to port like the AUTO one of "wide_halo"
+# the ids "dynamic_psurf", "sal_scalar" and "wide_halo" keep their names;
+# the dynamic surface pressure (tests/test_torch_coupled.py), the scalar
+# SAL (tests/test_torch_stoch_tides.py) and the wide halo
+# (tests/test_torch_mesh.py, on ranks) are ported, so they hold the wide
+# halos, fixed and AUTO, against the reference off a mesh
 @pytest.mark.parametrize("flag,value", [
     pytest.param("wide_halo", 4, id="dynamic_psurf"),
     pytest.param("wide_halo", 2, id="sal_scalar"),
     pytest.param("wide_halo", -1, id="wide_halo")])
 def test_btstep_unported_options_raise(basin, flag, value):
+    """Off a mesh the wide halo is off, as on the reference's single
+    device: btstep with it set equals the reference's btstep with it set
+    (to the file's 1e-4) and the port's dense path to the bit."""
     G_ref, GV_ref, G, GV, x = basin
-    bt = tbt.BTParams(nstep=4, nfilter=1)
-    bt = bt.replace(**{flag: value})
-    z3, z2 = torch.zeros(NZ, NY, NX), torch.zeros(NY, NX)
-    with pytest.raises(NotImplementedError):
-        tbt.btstep(z3, z3, z2, z3, z3, z3 + 1, z3, z3, z3, z3, z3, z2,
-                   1200.0, G, GV, bt)
+    kw = dict(nstep=4, nfilter=1, bebt=0.2, lin_drag=1e-3, cdrag=1e-3)
+    pf_ref = rpf.pressure_force_montgomery(J(x["h"]), G_ref, GV_ref)
+    pf = tpf.pressure_force_montgomery(T(x["h"]), G, GV)
+
+    def args(C, pf_):
+        return (C(x["u"]), C(x["v"]), C(0.1 * x["f2"] * 1e7),
+                C(1e-6 * x["u"]), C(1e-6 * x["v"]), C(x["h"]), C(x["uh"]),
+                C(x["vh"]), C(np.ones_like(x["u"])), C(np.ones_like(x["v"])),
+                pf_.pbce, pf_.eta_PF, 1200.0)
+    ref = jax.jit(lambda: rbt.btstep(
+        *args(J, pf_ref), G_ref, GV_ref,
+        rbt.BTParams(**kw, **{flag: value}), taux=J(x["taux"])))()
+    got = tbt.btstep(*args(T, pf), G, GV,
+                     tbt.BTParams(**kw).replace(**{flag: value}),
+                     taux=T(x["taux"]))
+    dense = tbt.btstep(*args(T, pf), G, GV, tbt.BTParams(**kw),
+                       taux=T(x["taux"]))
+    _close(ref, got, tol=1e-4)
+    for a, b in zip(got, dense):
+        assert torch.equal(a, b)
 
 
 def test_set_dtbt_and_weights_parity(basin):
@@ -314,10 +332,16 @@ def test_stepper_is_a_module_with_the_configuration_as_buffers(gyre):
 
 
 def test_rk2b_not_ported(gyre):
-    """The RK2b scheme is ported (tests/test_torch_oda_rk2b.py): this
-    holds the wide-halo subcycle of its barotropic solver, still to port,
-    which a split step with RK2B reaches and refuses."""
+    """The RK2b scheme is ported (tests/test_torch_oda_rk2b.py), and so is
+    the wide-halo subcycle of its barotropic solver (on ranks,
+    tests/test_torch_mesh.py): off a mesh the wide halo is off, so an RK2B
+    step with it set equals the RK2B step without it to the bit."""
     _, (G, GV, st, p, f), _ = gyre
-    q = p.replace(scheme="RK2B", bt=p.bt.replace(wide_halo=4))
-    with pytest.raises(NotImplementedError, match="wide-halo"):
-        step_dynamics_split_rk2(st, f, G, GV, q)
+    q = p.replace(scheme="RK2B")
+    with torch.inference_mode():
+        want = step_dynamics_split_rk2(st, f, G, GV, q)
+        got = step_dynamics_split_rk2(
+            st, f, G, GV, q.replace(bt=q.bt.replace(wide_halo=4)))
+    for k in ("h", "u", "v", "uh", "vh"):
+        assert torch.equal(getattr(got, k), getattr(want, k)), k
+    assert bool(torch.isfinite(got.u).all())

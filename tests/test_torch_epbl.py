@@ -195,16 +195,24 @@ def test_epbl_raises_for_langmuir():
     tests/test_torch_coupled.py), and CVMix convection and double
     diffusion are too (tests/test_torch_options.py), and so are SPPT and
     SKEB (tests/test_torch_stoch_tides.py), and SPLIT_RK2B
-    (tests/test_torch_oda_rk2b.py), so this holds what the step still
-    lacks: BT_WIDE_HALO beside ePBL, fixed or AUTO, raises at build time,
-    naming itself."""
+    (tests/test_torch_oda_rk2b.py), and BT_WIDE_HALO (on ranks,
+    tests/test_torch_mesh.py), so this holds BT_WIDE_HALO beside ePBL,
+    fixed and AUTO, off a mesh: the build reads the width and is the
+    build without it otherwise, and a cycle equals the cycle without it
+    to the bit."""
     from mom6_tpu_torch.drivers.config_driver import build_model_from_params
     from mom6_tpu_torch.framework.config import ParamFile
+    from torch_widehalo import (assert_build_reads_wide_halo,
+                                assert_step_ignores_wide_halo)
     text = CONV_BASE + "ENERGETICS_SFC_PBL = True\nUSE_LA_LI2016 = True\n"
-    for key, value in (("BT_WIDE_HALO", "-1"), ("BT_WIDE_HALO", "4")):
-        with pytest.raises(NotImplementedError, match=key):
-            build_model_from_params(
-                ParamFile(text=text + f"{key} = {value}\n"), device="cpu")
+    for value in (-1, 4):
+        ms = assert_build_reads_wide_halo(
+            lambda t: build_model_from_params(ParamFile(text=t),
+                                              device="cpu"),
+            text + f"BT_WIDE_HALO = {value}\n")
+        assert_step_ignores_wide_halo(
+            lambda p: step_mom(ms.state, ms.forcing, ms.grid, ms.vgrid, p),
+            ms.params, value, ("h", "u", "v", "T", "S", "kv_shear"))
 
 
 def test_epbl_cycles_f64(ref64):

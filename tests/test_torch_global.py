@@ -396,24 +396,31 @@ def test_missing_mosaic_is_generated_in_memory(run_dir, small, tmp_path,
 # diffusion, double diffusion, convection, the Zanna-Bolton closure, the
 # porous barriers, the interface filter, the Stanley correction, the
 # harmonic SAL, SKEB, the tidal forcing, every remapping scheme, every
-# coordinate and SPLIT_RK2B are ported, so they hold BT_WIDE_HALO (with
-# other values, AUTO, and beside a new scheme or HYBGEN) and a topography
-# still to port
+# coordinate, SPLIT_RK2B and BT_WIDE_HALO (on ranks,
+# tests/test_torch_mesh.py) are ported, so they hold BT_WIDE_HALO (with
+# other values, AUTO, and beside a new scheme or HYBGEN) off a mesh, as
+# builds the reference's (no exception), and a topography still to port
 @pytest.mark.parametrize("text,exc,match", [
-    ("BT_WIDE_HALO = -1", NotImplementedError, "BT_WIDE_HALO"),
-    ("BT_WIDE_HALO = 4", NotImplementedError, "BT_WIDE_HALO"),
-    ("REMAPPING_SCHEME = PPM_H6\nBT_WIDE_HALO = 2", NotImplementedError,
-     "BT_WIDE_HALO"),
-    ("REMAPPING_SCHEME = P3M_H4\nBT_WIDE_HALO = 8", NotImplementedError,
-     "BT_WIDE_HALO"),
+    ("BT_WIDE_HALO = -1", None, None),
+    ("BT_WIDE_HALO = 4", None, None),
+    ("REMAPPING_SCHEME = PPM_H6\nBT_WIDE_HALO = 2", None, None),
+    ("REMAPPING_SCHEME = P3M_H4\nBT_WIDE_HALO = 8", None, None),
     ("TOPO_CONFIG = spoon", NotImplementedError, "TOPO_CONFIG"),
-    ("REGRIDDING_COORDINATE_MODE = HYBGEN\nBT_WIDE_HALO = 6",
-     NotImplementedError, "BT_WIDE_HALO"),
+    ("REGRIDDING_COORDINATE_MODE = HYBGEN\nBT_WIDE_HALO = 6", None, None),
     ("NO_SUCH_KEY = 1", ValueError, "NO_SUCH_KEY"),
 ], ids=["epbl", "jackson", "varmix", "grid", "wind", "ale", "unknown"])
 def test_build_rejects_what_is_not_ported(run_dir, text, exc, match):
+    """What the port lacks raises naming itself; a ported option (no
+    exception) builds the reference's model, BT_WIDE_HALO's width read."""
     path = os.path.join(run_dir, "MOM_input")
-    over = OVERRIDES.replace("USE_KPP = False\n", "") + text
+    over = OVERRIDES.replace("USE_KPP = False\n", "") + text + "\n"
+    if exc is None:
+        ms = build_model_from_params(ParamFile([path], text=over),
+                                     device="cpu")
+        _assert_same_model(ms, ref_build(RefParamFile([path], text=over)))
+        width = int(text.split("BT_WIDE_HALO = ")[1])
+        assert ms.params.dyn.bt.wide_halo == width
+        return
     with pytest.raises(exc, match=match):
         build_model_from_params(ParamFile([path], text=over), device="cpu")
 
@@ -646,8 +653,11 @@ def test_step_mom_one_cycle_with_kpp_f32(run_dir, flowing):
 # the ids keep their names; neutral diffusion, the passivity, the cap, the
 # boundary-layer form of the tracer diffusion, the interface filter, the
 # porous barriers, the Zanna-Bolton closure, SPPT, SKEB, the harmonic SAL,
-# the HYBGEN coordinate and the RK2b scheme are ported, so they hold the
-# wide-halo subcycle (AUTO, fixed, and beside HYBGEN), still to port
+# the HYBGEN coordinate, the RK2b scheme and the wide-halo subcycle (on
+# ranks, tests/test_torch_mesh.py) are ported, so they hold the wide halo
+# (AUTO and fixed) off a mesh, where it is off (the case that held HYBGEN
+# holds the wide halo alone: HYBGEN's densities are set at build time,
+# test_build_rejects_what_is_not_ported's "ale")
 @pytest.mark.parametrize("change,match", [
     pytest.param(lambda p: p.replace(dyn=p.dyn.replace(
         bt=p.dyn.bt.replace(wide_halo=-1))), "wide-halo",
@@ -655,13 +665,20 @@ def test_step_mom_one_cycle_with_kpp_f32(run_dir, flowing):
     pytest.param(lambda p: p.replace(dyn=p.dyn.replace(
         bt=p.dyn.bt.replace(wide_halo=4))), "wide-halo",
         id="khtr_max-100.0"),
-    pytest.param(lambda p: p.replace(ale=dataclasses.replace(
-        p.ale, mode="HYBGEN"), dyn=p.dyn.replace(bt=p.dyn.bt.replace(
-            wide_halo=2))), "wide-halo", id="neutral_diffusion-True")])
+    pytest.param(lambda p: p.replace(dyn=p.dyn.replace(
+        bt=p.dyn.bt.replace(wide_halo=2))), "wide-halo",
+        id="neutral_diffusion-True")])
 def test_step_mom_unported_tracer_diffusion_raises(small, change, match):
+    """A cycle of the small tripolar model with the wide halo set equals
+    the cycle without it to the bit (``match`` names the subcycle the
+    case holds)."""
+    from torch_widehalo import assert_step_ignores_wide_halo
     _, ms = small
-    with pytest.raises(NotImplementedError, match=match):
-        step_mom(ms.state, ms.forcing, ms.grid, ms.vgrid, change(ms.params))
+    p = change(ms.params)
+    assert match == "wide-halo" and p.dyn.bt.wide_halo != 0
+    assert_step_ignores_wide_halo(
+        lambda q: step_mom(ms.state, ms.forcing, ms.grid, ms.vgrid, q), p,
+        p.dyn.bt.wide_halo, ("h", "u", "v", "T", "S"))
 
 
 # --- the fold, held to the physics ---------------------------------------------

@@ -278,18 +278,26 @@ def test_unported_kpp_options_raise():
     tests/test_torch_column_physics.py, DHH85 and SURFBANDS in
     tests/test_torch_coupled.py), and double diffusion is too
     (tests/test_torch_options.py), and SPPT (tests/test_torch_stoch_tides.py),
-    and SPLIT_RK2B (tests/test_torch_oda_rk2b.py), so this holds what the
-    step still lacks: BT_WIDE_HALO beside KPP raises at build time, naming
-    itself; and
+    and SPLIT_RK2B (tests/test_torch_oda_rk2b.py), and BT_WIDE_HALO (on
+    ranks, tests/test_torch_mesh.py), so this holds BT_WIDE_HALO beside
+    KPP off a mesh: the build reads the width and is the build without it
+    otherwise, and a cycle equals the cycle without it to the bit; and
     the JHL scheme is not a CVMix shear scheme."""
+    from mom6_tpu_torch.core.mom import step_mom
     from mom6_tpu_torch.drivers.config_driver import build_model_from_params
     from mom6_tpu_torch.framework.config import ParamFile
     from torch_gates import CONV_BASE
+    from torch_widehalo import (assert_build_reads_wide_halo,
+                                assert_step_ignores_wide_halo)
     G, GV = port_grids()
     x = {k: _t(a) for k, a in column_inputs("none", (NZ, NY, NX)).items()}
     text = CONV_BASE + "USE_KPP = True\nBT_WIDE_HALO = 4\n"
-    with pytest.raises(NotImplementedError, match="BT_WIDE_HALO"):
-        build_model_from_params(ParamFile(text=text), device="cpu")
+    ms = assert_build_reads_wide_halo(
+        lambda t: build_model_from_params(ParamFile(text=t), device="cpu"),
+        text)
+    assert_step_ignores_wide_halo(
+        lambda p: step_mom(ms.state, ms.forcing, ms.grid, ms.vgrid, p),
+        ms.params, 4, ("h", "u", "v", "T", "S", "kv_shear"))
     with pytest.raises(ValueError, match="JHL"):
         shear_mixing.shear_mixing_kd(
             x["h"], x["u"], x["v"], x["T"], x["S"], G, GV,

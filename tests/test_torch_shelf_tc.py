@@ -425,24 +425,31 @@ def test_build_equals_reference_f64(name, ref64):
     ("isomip", "ICE_PROFILE_CONFIG = cosine\n", NotImplementedError,
      "ICE_PROFILE_CONFIG"),
     ("tc2", "TFREEZE_FORM = UNKNOWN\n", NotImplementedError, "TFREEZE_FORM"),
-    # the opacity, the harmonic SAL and SPLIT_RK2B are ported: the case
-    # holds BT_WIDE_HALO's AUTO, still to port
-    ("tc2", "BT_WIDE_HALO = -1\n", NotImplementedError, "BT_WIDE_HALO"),
-    # double diffusion and SKEB are ported: the case holds BT_WIDE_HALO,
-    # still to port
-    ("tc2", "BT_WIDE_HALO = 4\n", NotImplementedError, "BT_WIDE_HALO"),
-    # every remapping scheme and coordinate is ported, and SPLIT_RK2B: the
-    # three cases hold BT_WIDE_HALO beside the scheme or coordinate each
-    # held before, still to port
+    # the opacity, the harmonic SAL, SPLIT_RK2B, double diffusion, SKEB,
+    # every remapping scheme and coordinate and BT_WIDE_HALO (on ranks,
+    # tests/test_torch_mesh.py) are ported: these cases (no exception)
+    # hold BT_WIDE_HALO, AUTO and fixed, alone and beside the scheme or
+    # coordinate each held before, off a mesh (HYBGEN on tc2: isomip's
+    # file sets SIGMA_SHELF_ZSTAR_DEPTH, which HYBGEN does not read)
+    ("tc2", "BT_WIDE_HALO = -1\n", None, None),
+    ("tc2", "BT_WIDE_HALO = 4\n", None, None),
     ("nonbouss_basin", "REMAPPING_SCHEME = PPM_H6\nBT_WIDE_HALO = 2\n",
-     NotImplementedError, "BT_WIDE_HALO"),
-    ("isomip", "REGRIDDING_COORDINATE_MODE = HYBGEN\nBT_WIDE_HALO = 6\n",
-     NotImplementedError, "BT_WIDE_HALO"),
-    ("tc1", "REMAPPING_SCHEME = P3M_H4\nBT_WIDE_HALO = 8\n",
-     NotImplementedError, "BT_WIDE_HALO"),
+     None, None),
+    ("tc2", "REGRIDDING_COORDINATE_MODE = HYBGEN\nBT_WIDE_HALO = 6\n",
+     None, None),
+    ("tc1", "REMAPPING_SCHEME = P3M_H4\nBT_WIDE_HALO = 8\n", None, None),
 ], ids=["ts_range-nk", "ice-profile", "tfreeze-form", "opacity",
         "double-diffusion", "remap-scheme", "coordinate", "passivity"])
 def test_unported_values_refused_at_build(name, text, exc, match):
+    """What the port lacks raises naming itself; BT_WIDE_HALO (no
+    exception) builds: off a mesh the build reads the width and is the
+    build without it otherwise."""
+    if exc is None:
+        from torch_widehalo import assert_build_reads_wide_halo
+        assert_build_reads_wide_halo(
+            lambda t: _port_build(name, torch.float32, text=t or None),
+            text)
+        return
     with pytest.raises(exc, match=match):
         _port_build(name, torch.float32, text=text)
 
