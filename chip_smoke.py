@@ -200,7 +200,7 @@ beside the gates):
    (nz-1) shapes of both, (19, 100, 180) and (31, 400, 720), float32 and
    float64 bitwise against its plain version;
 13. the open boundaries: each of the six run directories above as
-   committed in float32 on the card in this process, 5 thermo cycles
+   committed in float32 on the card in this process, 3 thermo cycles
    (``N_OBC_CYCLES``)
    with the provider's segment data, their launches held exactly to
    ``obc_cycle`` (tc3's with set_bt_cont's extra x and y edge launch a
@@ -351,8 +351,10 @@ beside the gates):
    of M2, K1, S2 and O1 and a filter bank on 96 hourly samples of the
    truth's SSH plus known tidal maps, the maps recovered, an
    accumulate's time, card against CPU;
-24. ``[mesh]``: configs/global_half_deg (720x400x32, f32) for one thermo
-   cycle on the ranks of parallel/mesh.py: four gloo ranks on cuda:0
+24. ``[mesh]``: configs/global_half_deg (720x400x32, f32) with
+   ``MESH_OVERRIDE`` (SAL_HARMONICS beside SAL_SCALAR_VALUE, DO_SPPT,
+   DO_SKEB) for one thermo cycle on the ranks of parallel/mesh.py, the
+   plain one-rank cycle with the same options: four gloo ranks on cuda:0
    (processes of their own) on the 2x2 mesh and two on the 1x2 mesh,
    BT_WIDE_HALO AUTO on the 2x2 mesh, and this process as one NCCL
    rank: each cycle's gathered h, u, v, T, S and ocean.stats equal the
@@ -367,7 +369,11 @@ beside the gates):
    the remap at their tile shapes) against their plain versions, 0
    ulps, timed with their bounds (and their device ms with ``--mesh``);
    the ensemble of four double-gyre members, one a rank, equal to
-   ensemble_step in one process;
+   ensemble_step in one process; the 2x2 cycle's restart written on the
+   ranks (gathered to rank 0) and restored on one rank, every field
+   equal to the one-rank cycle's; dome and isomip (``MESH_SMALL``) as
+   committed for one cycle on the 1x2 mesh equal to one rank, their tile
+   forms captured and held at 0 ulps, timed with their bounds;
 25. a JSON line of the kernels (each with its row at every shape it was
    checked at), then the result line.
 
@@ -652,8 +658,9 @@ OBC_CONFIGS = {"kelvin": (1, False, None), "shelfwave": (1, False, None),
                "tc3": (1, True, None)}
 # thermo cycles of each in float32 on the card, timed and counted (10
 # until the four run directories of isomip, tc1, tc2 and nonbouss_basin
-# joined the path: 5 keep the whole script inside its time limit)
-N_OBC_CYCLES = 5
+# joined the path, then 5 until `[mesh]` took the options and dome and
+# isomip on ranks: 3 keep the whole script inside its time limit)
+N_OBC_CYCLES = 3
 # the run directories of the sponge, the BBL drag, REENTRANT_Y, LF17, the
 # bulk mixed layer and hycom_basin's set, and of JACKETT06, ADAPTIVE and
 # neutral diffusion (spherical_gyre) and of the tidal mixing, the internal
@@ -5272,6 +5279,15 @@ MESH_ENSEMBLE = 4
 # under the fold's ghost row
 MESH_CHECKERS = {0: None, 2: ("halo", "merid_flux")}
 MESH_FIELDS = ("h", "u", "v", "T", "S")
+# the half-degree model's options on ranks: the harmonic SAL beside the
+# scalar one, SPPT and SKEB (TIDES needs a spherical grid in the port as in
+# the reference, and the Stanley quadrature, 1688 device ms a cycle,
+# stays off); the one-rank cycle runs with the same options
+MESH_OVERRIDE = ("SAL_SCALAR_VALUE = 0.094\nSAL_HARMONICS = True\n"
+                 "DO_SPPT = True\nDO_SKEB = True\n")
+# the configurations held on the 1x2 mesh for one cycle each, as committed:
+# DOME's open boundary (SPECIFIED inflow) and ISOMIP's ice shelf
+MESH_SMALL = ("dome", "isomip")
 # with --mesh the cycles and the tile forms run under the profiler (each
 # rank's process takes the flag from its arguments)
 MESH_PROFILE = "--mesh" in sys.argv
@@ -5354,12 +5370,18 @@ def _check_tile_forms(seen, rank):
                     hp, mp, h_min, mono, s2, fold)
             else:
                 name, hp, mp, h_min, _, _, direction = args[:7]
-                key, out = "ppm_edges_x", tuple(hp.shape)
-                label = f"{key} tile (rank {rank}, halo columns)"
+                fold = bool(args[7]) if len(args) > 7 else False
+                if direction == cppm._DIR_X:
+                    key, where = "ppm_edges_x", "halo columns"
+                else:
+                    key = "ppm_edges_y_fold" if fold else "ppm_edges_y"
+                    where = "its rows whole"
+                out = tuple(hp.shape)
+                label = f"{key} tile (rank {rank}, {where})"
                 kern = lambda mono, s2: cppm._edges_launch(  # noqa
-                    name, hp, mp, h_min, mono, s2, direction)
+                    name, hp, mp, h_min, mono, s2, direction, fold)
                 plain = lambda mono, s2: cppm.ppm_edges_plain(  # noqa
-                    hp, mp, h_min, mono, s2, direction)
+                    hp, mp, h_min, mono, s2, direction, fold)
             n, plane = math.prod(out), out[1] * out[2]
             rows[(key, out)] = _tile_row(
                 label, out, [(functools.partial(kern, mono, s2),
@@ -5370,20 +5392,23 @@ def _check_tile_forms(seen, rank):
         elif "flux" in form:
             name, h, hl, hr, face, d_p, d_m, u = args[:8]
             direction = args[10]
-            key = "ppm_flux_x" if direction == cppm._DIR_X else "ppm_flux_y"
+            fold = bool(args[11]) if len(args) > 11 else False
+            key = "ppm_flux_x" if direction == cppm._DIR_X else (
+                "ppm_flux_y_fold" if fold else "ppm_flux_y")
             g = torch.Generator(device=u.device).manual_seed(5)
             dw = 0.05 * torch.randn(u.shape[1:], generator=g,
                                     device=u.device, dtype=u.dtype)
             rem = torch.rand(u.shape, generator=g, device=u.device,
                              dtype=u.dtype)
             pairs = [(functools.partial(cppm._flux_launch, name, h, hl, hr,
-                                        face, d_p, d_m, u, a, b, direction),
+                                        face, d_p, d_m, u, a, b, direction,
+                                        fold),
                       functools.partial(cppm.ppm_flux_plain, h, hl, hr, face,
-                                        d_p, d_m, u, a, b, direction))
+                                        d_p, d_m, u, a, b, direction, fold))
                      for a, b in ((dw, rem), (None, None))]
             n, plane = math.prod(shape), shape[1] * shape[2]
             rows[(key, shape)] = _tile_row(
-                f"{key} tile (rank {rank}, a halo row or column)", shape,
+                f"{key} tile (rank {rank})", shape,
                 pairs, 4 * (7 * n + 4 * plane),
                 FLOPS_PER_POINT["ppm_flux"] * n, "ppm_flux_kernel")
         elif form == "remap tile":
@@ -5409,6 +5434,26 @@ def _check_tile_tridiag(a, b, c, d, rank):
                        lambda: [solvers.tridiag_solve_plain(a, b, c, d)])],
                      4 * 5 * n, FLOPS_PER_POINT["tridiag"] * n,
                      "thomas_kernel")
+
+
+def _capture_solves():
+    """Wrap the cycle's tridiag_solve users so that the first solve keeps
+    a copy of its (a, b, c, d).  Returns (solves, undo)."""
+    solves = []
+    orig = solvers.tridiag_solve
+
+    def keep_solve(a, b, c, d):
+        if not solves:
+            solves.append([t.clone() for t in (a, b, c, d)])
+        return orig(a, b, c, d)
+    users = _solve_users()
+    for mod in users:
+        mod.tridiag_solve = keep_solve
+
+    def undo():
+        for mod in users:
+            mod.tridiag_solve = orig
+    return solves, undo
 
 
 def _card_busy(fn):
@@ -5488,6 +5533,7 @@ def _mesh_rank(rank, world, port, model_path, tmp, queue, profile):
     from mom6_tpu_torch.parallel.ensemble import (
         ensemble_mesh, ensemble_step_sharded, gather_ensemble,
         shard_ensemble)
+    from mom6_tpu_torch.framework.restart import RestartRegistry
     from mom6_tpu_torch.parallel.mesh import Mesh, gather, shard_model
     MESH_PROFILE = profile
     torch.set_num_threads(2)
@@ -5522,26 +5568,28 @@ def _mesh_rank(rank, world, port, model_path, tmp, queue, profile):
         with mesh, torch.inference_mode():
             if first and rank in MESH_CHECKERS:
                 seen, undo = _capture_tile_launches()
-                solves = []
-                orig = solvers.tridiag_solve
-
-                def keep_solve(a, b, c, d):
-                    if not solves:
-                        solves.append([t.clone() for t in (a, b, c, d)])
-                    return orig(a, b, c, d)
-                users = _solve_users()
-                for mod in users:
-                    mod.tridiag_solve = keep_solve
+                solves, undo_solves = _capture_solves()
                 try:
                     out, r = _mesh_cycle(mesh, stepper, stt)
                 finally:
                     undo()
-                    for mod in users:
-                        mod.tridiag_solve = orig
+                    undo_solves()
             else:
                 out, r = _mesh_cycle(mesh, stepper, stt)
             r["stats"] = compute_stats_device(out, Gt, GVt, dt)
             r["stats_host"] = compute_stats(out, Gt, GVt, dt)
+            if first:
+                # the restart written on the ranks: gathered to rank 0,
+                # which writes the file one rank writes
+                reg = RestartRegistry()
+                reg.register_state(stt)
+                torch.cuda.synchronize()
+                t0 = time.time()
+                reg.save_restart(os.path.join(tmp, "restart_2x2.nc"), out,
+                                 time_seconds=float(p.dyn.dt
+                                                    * p.n_dyn_per_thermo),
+                                 step=1)
+                r["restart_ms"] = 1e3 * (time.time() - t0)
             got = gather(mesh, {k: getattr(out, k) for k in MESH_FIELDS})
             if mesh.rank == 0:
                 torch.save({k: v.cpu() for k, v in got.items()},
@@ -5611,8 +5659,72 @@ def _mesh_rank(rank, world, port, model_path, tmp, queue, profile):
                    os.path.join(tmp, "ensemble.pt"))
     dist.barrier()
     stage("the ensemble stepped")
+    for name in MESH_SMALL:
+        if rank < 2:
+            rec[name], rows = _mesh_small(name, rank, groups[(1, 2)], dev,
+                                          tmp)
+            if rows is not None:
+                rec["kernel_rows " + name] = rows
+        dist.barrier()
+        stage(f"{name} on 1x2 done")
     queue.put(rec)
     dist.destroy_process_group()
+
+
+def _mesh_small(name, rank, group, dev, tmp):
+    """One cycle of configs/<name> (saved by the script's process) on the
+    1x2 mesh of ranks 0-1: (its record, rank 0's tile forms checked
+    against their plain versions, {row name: row}, None on rank 1).  The
+    gathered h, u, v, T, S go to ``tmp``."""
+    from mom6_tpu_torch.parallel.mesh import Mesh, gather, shard_model
+    G, GV, st, p, f = torch.load(os.path.join(tmp, f"small_{name}.pt"),
+                                 weights_only=False)
+    mesh = Mesh((1, 2), group=group, device=dev)
+    Gt, GVt, stt, pt, ft = shard_model(mesh, G, GV, st, p, f)
+    stepper = make_mom_stepper(Gt, GVt, pt, ft)
+    with mesh, torch.inference_mode():
+        if rank == 0:
+            seen, undo = _capture_tile_launches()
+            solves, undo_solves = _capture_solves()
+        try:
+            out, r = _mesh_cycle(mesh, stepper, stt)
+        finally:
+            if rank == 0:
+                undo()
+                undo_solves()
+        got = gather(mesh, {k: getattr(out, k) for k in MESH_FIELDS})
+    r["tile"] = list(stt.h.shape)
+    if rank != 0:
+        return r, None
+    torch.save({k: v.cpu() for k, v in got.items()},
+               os.path.join(tmp, f"small_{name}_1x2.pt"))
+    rows = _check_tile_forms(seen, rank)
+    if solves:
+        a, b, c, d = solves[0]
+        rows[("tridiag", tuple(d.shape))] = _check_tile_tridiag(a, b, c, d,
+                                                                rank)
+    return r, {f"{k[0]} {list(k[1])}": v for k, v in rows.items()}
+
+
+def _small_one_rank(name, dev, tmp):
+    """configs/<name> as committed, built on the card, its CPU copy saved
+    for the ranks, and one plain cycle: (the state after it, record)."""
+    ms = build_model_from_params(
+        ParamFile([os.path.join(REPO, "configs", name, "MOM_input")]),
+        device=dev)
+    G, GV, st, p, f = ms.grid, ms.vgrid, ms.state, ms.params, ms.forcing
+    torch.save((G.to("cpu"), GV.to("cpu"), st.to("cpu"), _to_cpu_params(p),
+                f.to("cpu")), os.path.join(tmp, f"small_{name}.pt"))
+    one = make_mom_stepper(G, GV, p, f)
+    with torch.inference_mode():
+        reset_kernel_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = one(st)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.time() - t0)
+    return out, dict(wall_ms=wall, exchanges=0, bytes_sent=0,
+                     launches=kernel_launches())
 
 
 def _solve_users():
@@ -5687,21 +5799,33 @@ def _mesh_line(tag, r, n_ranks, dev_ms=None):
         f"{ {k: v for k, v in r['launches'].items() if v} }; {use}")
 
 
-def phase_mesh(dev, ms, card):
-    """[mesh]: the half-degree global model (720x400x32, f32) for one
-    thermo cycle on 2x2 and 1x2 gloo ranks that share cuda:0, with
-    BT_WIDE_HALO AUTO on the 2x2 mesh, and on one NCCL rank: each
-    gathered h, u, v, T, S and its ocean.stats to the bit with the plain
-    one-rank cycle; the kernels' tile forms at the tiles' shapes against
-    their plain versions (0 ulps); the ensemble of four members, one a
-    rank, to the bit with one process.  Returns (the 2x2 rank 0's launch
-    counts, {row name: [kernel rows]})."""
+def phase_mesh(dev, card):
+    """[mesh]: the half-degree global model (720x400x32, f32) with the
+    harmonic SAL, SPPT and SKEB (MESH_OVERRIDE) for one thermo cycle on
+    2x2 and 1x2 gloo ranks that share cuda:0, with BT_WIDE_HALO AUTO on
+    the 2x2 mesh, and on one NCCL rank: each gathered h, u, v, T, S and
+    its ocean.stats to the bit with the plain one-rank cycle; the 2x2
+    cycle's restart written on the ranks and restored on one rank, every
+    field to the bit; dome and isomip (MESH_SMALL) for one cycle on 1x2
+    ranks against one rank; the kernels' tile forms at the tiles' shapes
+    against their plain versions (0 ulps); the ensemble of four members,
+    one a rank, to the bit with one process.  Returns (the 2x2 rank 0's
+    launch counts, {row name: [kernel rows]})."""
     import multiprocessing as mp
     import socket
     import tempfile
     from mom6_tpu_torch.diagnostics.sum_output import compute_stats_device
+    from mom6_tpu_torch.framework.restart import RestartRegistry
     from mom6_tpu_torch.parallel.ensemble import ensemble_step
+    t0 = time.time()
+    ms = build_model_from_params(
+        ParamFile([os.path.join(GLOBAL_DIR, "MOM_input")],
+                  text=MESH_OVERRIDE), device=dev)
     G, GV, st, p, f = ms.grid, ms.vgrid, ms.state, ms.params, ms.forcing
+    if p.sal_harmonics is None or p.sppt is None or not p.skeb_scale > 0.0:
+        raise AssertionError("[mesh] the options did not reach the model")
+    log(f"[mesh] built global_half_deg with {MESH_OVERRIDE.split()[::3]} in "
+        f"{time.time() - t0:.1f} s (SAL degree {p.sal_harmonics.nmax})")
     dt = p.dyn.dt
     one = make_mom_stepper(G, GV, p, f)
     with torch.inference_mode():
@@ -5723,6 +5847,9 @@ def phase_mesh(dev, ms, card):
     os.makedirs(OUT, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="mesh_", dir=OUT)
     try:
+        small = {name: _small_one_rank(name, dev, tmp) for name in MESH_SMALL}
+        for name, (_, r) in small.items():
+            _mesh_line(f"{name}, the plain one-rank cycle", r, 1)
         model_path = os.path.join(tmp, "model.pt")
         torch.save((G.to("cpu"), GV.to("cpu"), st.to("cpu"),
                     _to_cpu_params(p), f.to("cpu")), model_path)
@@ -5795,6 +5922,37 @@ def phase_mesh(dev, ms, card):
         log(f"[mesh] ocean.stats on every mesh equal the plain cycle's to "
             f"the bit, device {stats_want} and host {host_want}")
         tagw = f"{MESH_LAYOUTS[0][0]}x{MESH_LAYOUTS[0][1]}"
+        # the restart written on 2x2, restored on one rank
+        path = os.path.join(tmp, "restart_2x2.nc")
+        reg = RestartRegistry()
+        reg.register_state(st)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        back = reg.restore_state(path, st)[0]
+        torch.cuda.synchronize()
+        restore_ms = 1e3 * (time.time() - t0)
+        for n in reg.names:
+            if not torch.equal(reg.get(n, back), reg.get(n, want)):
+                raise AssertionError(f"[mesh] the restart's {n} written on "
+                                     "2x2 and restored on one rank differs "
+                                     "from the one-rank cycle's")
+        log(f"[mesh] restart across layouts: written on 2x2 (gathered to "
+            f"rank 0, {recs[0][tagw]['restart_ms']:.1f} wall ms, no halo "
+            f"exchange, {os.path.getsize(path)} bytes), restored on one rank "
+            f"({restore_ms:.1f} wall ms): its {len(reg.names)} fields "
+            f"{reg.names} equal the one-rank cycle's to the bit")
+        del back
+        for name in MESH_SMALL:
+            want_s = small[name][0]
+            got = torch.load(os.path.join(tmp, f"small_{name}_1x2.pt"))
+            for k in MESH_FIELDS:
+                if not torch.equal(got[k], getattr(want_s, k).cpu()):
+                    raise AssertionError(
+                        f"[mesh] {name} 1x2: {k} differs from the one-rank "
+                        f"cycle by {rel_err(got[k], getattr(want_s, k).cpu()):.3e}")
+            _mesh_line(f"{name} 1x2 gloo, tile {recs[0][name]['tile']}, h, u, "
+                       f"v, T, S gathered equal the one-rank cycle to the bit",
+                       recs[0][name], 2)
         wide, dense = recs[0]["wide " + tagw], recs[0][tagw]
         log(f"[mesh] BT_WIDE_HALO AUTO on {tagw}: width {wide['width']}, "
             f"{wide['exchanges']} exchanges a cycle ({wide['rim_exchanges']}"
@@ -5831,6 +5989,10 @@ def phase_mesh(dev, ms, card):
                 name = key.split(" ")[0]
                 row = dict(row, rank=r, path="mesh 2x2")
                 rows.setdefault(name, []).append(row)
+        for small_name in MESH_SMALL:
+            for key, row in recs[0]["kernel_rows " + small_name].items():
+                rows.setdefault(key.split(" ")[0], []).append(
+                    dict(row, rank=0, path=f"mesh 1x2 {small_name}"))
         return recs[0][tagw]["launches"], rows
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -5950,8 +6112,10 @@ def main():
         log(f"[card] {card}")
         return
     if "--mesh" in sys.argv:
+        del ms
+        torch.cuda.empty_cache()
         t0 = time.time()
-        counts, rows = phase_mesh(dev, ms, card)
+        counts, rows = phase_mesh(dev, card)
         log(f"[time] mesh: {time.time() - t0:.1f} s")
         log(f"[card] {card}")
         log(json.dumps({"mesh_launches": counts, "mesh_rows": rows}))
@@ -6000,13 +6164,14 @@ def main():
     counts["rk2b"] = timed("rk2b", phase_rk2b, dev, card)
     torch.cuda.empty_cache()
     counts["oda"] = timed("oda", phase_oda, dev, ms, card)
+    del ms
     torch.cuda.empty_cache()
-    counts["mesh"], mesh_rows = timed("mesh", phase_mesh, dev, ms, card)
+    counts["mesh"], mesh_rows = timed("mesh", phase_mesh, dev, card)
     for name, rs in mesh_rows.items():
         SHAPE_ROWS.setdefault(name, []).extend(rs)
     results["ppm_edges_y_halo"] = next(
-        r for r in mesh_rows["ppm_edges_y_halo"] if r["rank"] == 0)
-    del ms
+        r for r in mesh_rows["ppm_edges_y_halo"] if r["rank"] == 0
+        and r["path"] == "mesh 2x2")
     torch.cuda.empty_cache()
     # the gates' processes run beside the checks that follow (nothing after
     # this point is timed for a report but the gates themselves)

@@ -10,7 +10,9 @@ the wet points: the wind stresses on their own faces, the rest on the h
 points.  The sums are exact (``math.fsum`` of the products and of the
 weights on the host, each correctly rounded), so a mean is the same on
 every device and in any order; the reference's ``jnp.sum`` rounds its
-partial sums, by ~1e-7 of the terms in float32.
+partial sums, by ~1e-7 of the terms in float32.  On a mesh of ranks
+(parallel/mesh.py) each rank sums the assembled global products, the
+same numbers as one rank's.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import math
 import torch
 
 from mom6_tpu_torch.framework.array_transform import rotate_scalar, rotate_uv
+from mom6_tpu_torch.framework.stencil import whole
 
 __all__ = ["rotate_mech_forcing", "rotate_forcing",
            "homogenize_mech_forcing", "homogenize_forcing"]
@@ -53,7 +56,7 @@ def rotate_forcing(forcing):
 def _mean(a, w):
     """sum(a w) / max(sum(w), 1e-30) in ``a``'s dtype, each sum exact."""
     def total(x):
-        return math.fsum(x.detach().double().cpu().numpy().ravel())
+        return math.fsum(whole(x).detach().double().cpu().numpy().ravel())
     num = torch.tensor(total(a * w), dtype=torch.float64)
     den = torch.tensor(max(total(w), 1e-30), dtype=torch.float64)
     return (num.to(a.dtype) / den.to(a.dtype)).to(a.device)

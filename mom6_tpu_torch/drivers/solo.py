@@ -168,7 +168,7 @@ def run_segment(state, G, GV, params, forces, *, n_steps: int,
                                steps_per_call=stats_interval)
         dt, per_step = params.dt, 1
     # on a mesh of ranks (parallel/mesh.py) only the first rank writes
-    lead = stencil._MESH is None or stencil._MESH.rank == 0
+    lead = stencil.is_root()
     writer = StatsWriter(stats_path) if stats_path and lead else None
     n_calls = n_steps // stats_interval
     t0 = time.time()
@@ -247,7 +247,7 @@ def _table_setup(dm, state, params, forcing, G, GV, rundir):
                                has_tend=tend_fn is not None)
         if why:
             rejected[d.name] = why
-    if rejected:
+    if rejected and stencil.is_root():
         print("diag_table fields rejected under this configuration:")
         with open(os.path.join(rundir, "diag_rejected"), "w") as fh:
             for nm, why in sorted(rejected.items()):

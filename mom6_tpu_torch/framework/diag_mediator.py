@@ -19,7 +19,11 @@ The core behaviour of MOM6's diag_mediator
   NetCDF file per diag_table file entry.
 
 Host-side orchestration with numpy accumulators; posts happen between
-segments at the diagnostic cadence.
+segments at the diagnostic cadence.  On a mesh of ranks
+(parallel/mesh.py) every rank posts its tiles, which are gathered to the
+mesh's rank 0 in a fixed order; rank 0 alone accumulates, remaps and
+writes, the global fields a one-rank run would (the mediator's
+``areaT``, ``geolat`` and ``geolon`` are the global fields).
 """
 
 from __future__ import annotations
@@ -33,7 +37,8 @@ import torch
 
 from mom6_tpu_torch.ale.regridding import build_rho_grid
 from mom6_tpu_torch.ale.remapping import PLM, remap_column
-from mom6_tpu_torch.framework.stencil import refuse_on_ranks
+from mom6_tpu_torch.framework.stencil import (is_root, is_tile, off_mesh,
+                                              to_root)
 from mom6_tpu_torch.io.netcdf import NCWriter
 
 __all__ = ["DiagMediator", "parse_diag_table", "DiagTable"]
@@ -74,6 +79,12 @@ def _host(a) -> np.ndarray:
     if isinstance(a, torch.Tensor):
         a = a.detach().cpu().numpy()
     return np.asarray(a, np.float64)
+
+
+def _to_root(a):
+    """A tile gathered to the mesh's rank 0 (None elsewhere); anything
+    else as it is."""
+    return to_root(a) if isinstance(a, torch.Tensor) and is_tile(a) else a
 
 
 def _parse_reduction(tok: str) -> str:
@@ -218,7 +229,15 @@ class DiagMediator:
     def update_remap_grids(self, h, T=None, S=None, GV=None, eos=None,
                            bathy=None) -> None:
         """Rebuild the diagnostic target grids from the current state.
-        Call whenever h changes (the reference calls it per thermo cycle)."""
+        Call whenever h changes (the reference calls it per thermo cycle).
+        On a mesh only its rank 0 keeps the grids."""
+        h, T, S = _to_root(h), _to_root(T), _to_root(S)
+        if not is_root():
+            return
+        with off_mesh():
+            self._update_remap_grids(h, T, S, GV, eos)
+
+    def _update_remap_grids(self, h, T, S, GV, eos) -> None:
         h = _host(h)
         col = h.sum(axis=0)
         if self._z_targets is not None:
@@ -241,8 +260,15 @@ class DiagMediator:
     def post_data(self, handle: int, data, h=None, bathy=None) -> None:
         """Accumulate one sample.  3-D fields on a diagnostic vertical
         coordinate are remapped using the grids from the last
-        ``update_remap_grids`` (or ``h`` if passed explicitly)."""
-        refuse_on_ranks("the diag_table's output")
+        ``update_remap_grids`` (or ``h`` if passed explicitly).  On a mesh
+        every rank posts its tile and only the mesh's rank 0 keeps it."""
+        data, h = _to_root(data), _to_root(h)
+        if not is_root():
+            return
+        with off_mesh():
+            self._post(handle, data, h)
+
+    def _post(self, handle: int, data, h) -> None:
         d = self._diags[handle]
         arr = _host(data)
         if d.vertical_coord != "native":
@@ -366,7 +392,8 @@ class DiagMediator:
 
     def flush_all(self, outdir: str, *, time_seconds: float = 0.0
                   ) -> Dict[str, List[str]]:
-        """diag_table mode: one NetCDF per diag_table file group."""
+        """diag_table mode: one NetCDF per diag_table file group (on a
+        mesh, written by its rank 0)."""
         import os
         files = sorted({d.file for d in self._diags.values()
                         if d.acc is not None})

@@ -39,6 +39,13 @@ from time 0 and its patterns from zero with the first key).  Its
 float64 runs restart from float32 values; here the template's dtype
 holds.  0-dim tensors are stored with shape (1,), since NetCDF-3 scalar
 variables do not read back through ``var[:]``.
+
+On a mesh of ranks (parallel/mesh.py) the save gathers every tile field
+to the mesh's rank 0 in a fixed order, and rank 0 writes the file a
+one-rank run writes (``io_layout`` included); the restore reads the file
+on rank 0, which hands each rank its tile of every field and the other
+fields whole.  So a restart moves between layouts: a file written on a
+2x2 mesh restores on one rank, and the reverse.
 """
 
 from __future__ import annotations
@@ -50,7 +57,8 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from mom6_tpu_torch.framework.stencil import refuse_on_ranks
+from mom6_tpu_torch.framework.stencil import (from_root, is_root, is_tile,
+                                              share_from_root, to_root)
 from mom6_tpu_torch.io.netcdf import NCWriter, read_nc
 
 __all__ = ["RestartRegistry", "TRACER_PREFIX", "restart_differences"]
@@ -79,6 +87,12 @@ def _host(t) -> np.ndarray:
         # 32-bit words are exact in float64
         a = a.astype(np.float64)
     return a.reshape(1) if a.ndim == 0 else a
+
+
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    """A host array read from a file as a tensor (NetCDF-3 stores
+    big-endian)."""
+    return torch.as_tensor(a.astype(a.dtype.newbyteorder("=")))
 
 
 class RestartRegistry:
@@ -141,10 +155,14 @@ class RestartRegistry:
     # -- save / restore -------------------------------------------------------
 
     def _arrays(self, state) -> Dict[str, np.ndarray]:
+        """The registered fields as host arrays; on a mesh, the global
+        fields on its rank 0 (an empty dict on the other ranks)."""
         out = {}
         for f in self._fields.values():
             val = f.getter(state)
-            if val is not None:
+            if val is not None and is_tile(val):
+                val = to_root(val)
+            if val is not None and is_root():
                 out[f.name] = _host(val)
         return out
 
@@ -153,9 +171,11 @@ class RestartRegistry:
                      io_layout: "tuple[int, int] | None" = None) -> None:
         """Write the restart; ``io_layout=(jy, ix)`` splits every field's
         trailing (ny, nx) plane into jy*ix tiles written as files
-        ``path.NNNN``, each tagged with its tile origin."""
-        refuse_on_ranks("the restart")
+        ``path.NNNN``, each tagged with its tile origin.  On a mesh every
+        rank calls it and the mesh's rank 0 writes."""
         arrays = self._arrays(state)
+        if not is_root():
+            return
         if io_layout is not None and tuple(io_layout) != (1, 1):
             self._save_distributed(path, arrays, time_seconds, step,
                                    io_layout)
@@ -204,26 +224,37 @@ class RestartRegistry:
     def restore_state(self, path: str, state):
         """(state, time_seconds, step) with every registered field the
         file holds put on the template's device in its dtype; a missing
-        mandatory field raises KeyError."""
-        refuse_on_ranks("the restart")
-        if not os.path.exists(path) and os.path.exists(path + ".0000"):
-            data = self._read_distributed(path)
-        else:
-            data = read_nc(path)
+        mandatory field raises KeyError.  On a mesh every rank calls it:
+        the mesh's rank 0 reads the file and each rank gets its tile."""
+        data, tiled = {}, set()
+        if is_root():
+            if not os.path.exists(path) and os.path.exists(path + ".0000"):
+                data = self._read_distributed(path)
+            else:
+                data = read_nc(path)
+            tiled = {f.name for f in self._fields.values()
+                     if f.name in data and is_tile(f.getter(state))}
+        # the names the file holds, and the fields that are not tiles
+        names, small = share_from_root(
+            (set(data), {k: a for k, a in data.items() if k not in tiled}))
         self._restored = set()
         for f in self._fields.values():
-            if f.name in data:
+            if f.name in names:
                 tmpl = f.getter(state)
-                a = data[f.name]        # NetCDF-3 stores big-endian
-                val = torch.as_tensor(a.astype(a.dtype.newbyteorder("=")))
-                val = val.to(device=tmpl.device, dtype=tmpl.dtype)
-                state = f.setter(state, val.reshape(tmpl.shape))
+                if f.name in small:
+                    val = _tensor(small[f.name]).to(device=tmpl.device,
+                                                    dtype=tmpl.dtype)
+                    val = val.reshape(tmpl.shape)
+                else:
+                    val = from_root(_tensor(data[f.name]) if is_root()
+                                    else None, tmpl)
+                state = f.setter(state, val)
                 self._restored.add(f.name)
             elif f.mandatory:
                 raise KeyError(f"mandatory restart field {f.name} missing "
                                f"from {path}")
-        time_s = float(data.get("__time_seconds__", np.zeros(1))[0])
-        step = int(data.get("__step__", np.zeros(1, np.int32))[0])
+        time_s = float(small.get("__time_seconds__", np.zeros(1))[0])
+        step = int(small.get("__step__", np.zeros(1, np.int32))[0])
         return state, time_s, step
 
     @staticmethod

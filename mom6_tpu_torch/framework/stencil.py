@@ -14,6 +14,14 @@ exchange, so that each tile sees what the global roll gives it; the
 fold's ghost row comes from the partner rank, and :func:`fold_ghost`
 gives None on a tile that does not hold the global top row
 (:func:`holds_top_row`).
+
+Work that reads a whole field goes through the helpers below, which are
+the identity off a mesh: :func:`whole` assembles a tile's global field
+on every rank (in rank order, so that a reduction of it takes the
+one-rank order), :func:`tile` cuts this rank's tile from a global field,
+:func:`to_root`/:func:`from_root` move a field to the mesh's rank 0 and
+back, and :func:`off_mesh` sets the mesh aside while every rank works on
+global fields of its own.
 """
 
 from __future__ import annotations
@@ -22,7 +30,9 @@ import torch
 
 __all__ = ["ip1", "im1", "jp1", "jm1", "jm1_s0", "jp1_sn", "fold_ghost",
            "fold_kinds", "holds_top_row", "holds_bottom_row",
-           "refuse_on_ranks"]
+           "refuse_on_ranks", "whole", "tile", "global_plane", "whole_sum",
+           "whole_max", "is_tile", "share_from_root", "is_root", "to_root",
+           "from_root", "off_mesh"]
 
 _X = -1  # i axis
 _Y = -2  # j axis
@@ -43,10 +53,93 @@ def holds_bottom_row() -> bool:
 
 def refuse_on_ranks(feature: str) -> None:
     """Raise NotImplementedError naming ``feature`` while a mesh is
-    active: host work that needs a whole field refuses a tile."""
+    active: the quarter turn of framework/array_transform.py, which
+    turns whole fields, refuses a tile."""
     if _MESH is not None:
         raise NotImplementedError(
             f"{feature} is not decomposed over ranks: run it on one rank")
+
+
+def whole(a):
+    """The global field of the tile ``a`` (..., ty, tx) on every rank of
+    the active mesh, its tiles placed in rank order; ``a`` off a mesh."""
+    return a if _MESH is None else _MESH.assemble(a)
+
+
+def tile(a):
+    """This rank's tile of the global field ``a`` (..., ny, nx) that every
+    rank holds; ``a`` off a mesh."""
+    if _MESH is None:
+        return a
+    j0, j1, i0, i1 = _MESH.tile_bounds()
+    return a[..., j0:j1, i0:i1].contiguous()
+
+
+def global_plane(a):
+    """The (ny, nx) of the global plane of the tile ``a``: ``a``'s own
+    off a mesh."""
+    if _MESH is None:
+        return tuple(a.shape[-2:])
+    return _MESH.ny, _MESH.nx
+
+
+def whole_sum(a):
+    """torch.sum of the global field of the tile ``a``, in the order one
+    rank sums it (the whole field assembled on every rank)."""
+    return torch.sum(whole(a))
+
+
+def whole_max(a):
+    """torch.amax of the global field of the tile ``a`` (exact in any
+    order: the ranks' maxima all-reduced)."""
+    m = torch.amax(a)
+    return m if _MESH is None else _MESH.all_max(m)
+
+
+def is_tile(a) -> bool:
+    """Whether ``a`` is a tile field of the active mesh: (..., ty, tx)."""
+    return (_MESH is not None and a.dim() >= 2
+            and tuple(a.shape[-2:]) == (_MESH.ty, _MESH.tx))
+
+
+def share_from_root(obj):
+    """The picklable ``obj`` of the mesh's rank 0 on every rank (``obj``
+    is not read elsewhere); ``obj`` off a mesh."""
+    return obj if _MESH is None else _MESH.broadcast_object(obj)
+
+
+def is_root() -> bool:
+    """Whether this rank writes what the model writes: the mesh's rank 0,
+    or any process off a mesh."""
+    return _MESH is None or _MESH.rank == 0
+
+
+def to_root(a):
+    """The global field of the tile ``a`` on the mesh's rank 0 and None on
+    the other ranks (every rank must call it); ``a`` off a mesh."""
+    return a if _MESH is None else _MESH.gather_root(a)
+
+
+def from_root(a, like):
+    """This rank's tile of the global field ``a`` that the mesh's rank 0
+    holds (``a`` is not read elsewhere), shaped and typed as the tile
+    ``like``; ``a`` off a mesh."""
+    return a if _MESH is None else _MESH.tile_from_root(a, like)
+
+
+class off_mesh:
+    """``with off_mesh():`` sets the active mesh aside, for work on whole
+    fields that every rank holds (the shifts then roll the field)."""
+
+    def __enter__(self):
+        global _MESH
+        self._saved, _MESH = _MESH, None
+        return self
+
+    def __exit__(self, *exc):
+        global _MESH
+        _MESH = self._saved
+        return False
 
 
 def ip1(a):

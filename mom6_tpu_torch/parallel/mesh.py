@@ -30,7 +30,10 @@ barotropic subcycle reads the active mesh, as every shift does.
 Besides the shifts, a mesh holds the exchanges of a halo of any width
 (:meth:`Mesh.pad_y`, :meth:`Mesh.pad_x`, used by the CUDA PPM passes
 and the wide-halo barotropic subcycle), the all-reduces of the exact
-sums and of the global extrema, and counts of its exchanges and of the
+sums and of the global extrema, the fixed-order moves of whole fields
+(:meth:`Mesh.assemble` on every rank, :meth:`Mesh.gather_root` to rank
+0, :meth:`Mesh.tile_from_root` back; framework/stencil.py's ``whole``,
+``to_root`` and ``from_root``), and counts of its exchanges and of the
 bytes it sent (``exchanges``, ``bytes_sent``).
 """
 
@@ -466,14 +469,62 @@ class Mesh:
         dist.all_gather(out, x, group=self.group)
         return [o.to(t.device) for o in out]
 
+    def _place(self, parts):
+        """The global field of the tiles ``parts``, in rank order."""
+        Px = self.shape[1]
+        rows = [torch.cat(parts[r * Px:(r + 1) * Px], dim=-1)
+                for r in range(self.shape[0])]
+        return torch.cat(rows, dim=-2)
+
     def assemble(self, t):
         """The global field of the tile ``t`` (..., ty, tx) on every rank
         of the mesh."""
-        parts = self.all_gather(t)
-        Py, Px = self.shape
-        rows = [torch.cat(parts[r * Px:(r + 1) * Px], dim=-1)
-                for r in range(Py)]
-        return torch.cat(rows, dim=-2)
+        return self._place(self.all_gather(t))
+
+    def gather_root(self, t):
+        """The global field of the tile ``t`` (..., ty, tx) on the mesh's
+        rank 0, its tiles placed in rank order, and None on the other
+        ranks (every rank must call it)."""
+        if self.size == 1 and self.backend != "nccl":
+            return t
+        x = self._comm(t)
+        parts = ([torch.empty_like(x) for _ in range(self.size)]
+                 if self.rank == 0 else None)
+        dist.gather(x, gather_list=parts, dst=self.ranks[0],
+                    group=self.group)
+        if self.rank != 0:
+            return None
+        return self._place(parts).to(t.device)
+
+    def tile_from_root(self, a, like):
+        """This rank's tile of the global field ``a`` (..., ny, nx) that
+        the mesh's rank 0 holds (``a`` is not read on the other ranks),
+        with the shape, dtype and device of the tile ``like``."""
+        if self.size == 1 and self.backend != "nccl":
+            return a.to(device=like.device, dtype=like.dtype).reshape(
+                like.shape)
+        x = torch.empty(like.shape, dtype=like.dtype,
+                        device="cpu" if self.backend == "gloo"
+                        else self.device)
+        parts = None
+        if self.rank == 0:
+            a = a.to(device=x.device, dtype=like.dtype).reshape(
+                like.shape[:-2] + (self.ny, self.nx))
+            parts = [a[..., py * self.ty:(py + 1) * self.ty,
+                       px * self.tx:(px + 1) * self.tx].contiguous()
+                     for py in range(self.shape[0])
+                     for px in range(self.shape[1])]
+        dist.scatter(x, scatter_list=parts, src=self.ranks[0],
+                     group=self.group)
+        return x.to(like.device)
+
+    def broadcast_object(self, obj):
+        """The picklable ``obj`` of the mesh's rank 0 on every rank."""
+        if self.size == 1:
+            return obj
+        box = [obj if self.rank == 0 else None]
+        dist.broadcast_object_list(box, src=self.ranks[0], group=self.group)
+        return box[0]
 
     def broadcast_from(self, t, owner: int):
         """The tensor ``t`` of the group rank ``owner`` on every rank."""
@@ -559,7 +610,7 @@ def gather(mesh: Mesh, tree):
     other ranks; every rank must call it)."""
     def put(x):
         if x.dim() >= 2 and tuple(x.shape[-2:]) == (mesh.ty, mesh.tx):
-            return mesh.assemble(x)
+            return mesh.gather_root(x)
         return x
     out = tree_map(put, tree)
     if mesh.rank != 0:
@@ -571,19 +622,12 @@ def gather(mesh: Mesh, tree):
 
 
 # the options whose whole-domain work is not decomposed over ranks: (the
-# model parameters' field, the option), refused by shard_model
-REFUSED_ON_RANKS = (
-    ("sal_harmonics", "SAL_HARMONICS (the spherical-harmonic transform "
-                      "of the whole sphere)"),
-    ("homogenize_forcings", "HOMOGENIZE_FORCINGS (global means of the "
-                            "forcing)"),
-    ("obc", "open boundaries (OBC_NUMBER_OF_SEGMENTS)"),
-    ("shelf", "ICE_SHELF (the shelf's SSA solve sums over the domain)"),
-    ("sppt", "DO_SPPT (the pattern's variance is a whole-domain "
-             "reduction)"),
-    ("skeb_scale", "DO_SKEB (the pattern's variance is a whole-domain "
-                   "reduction)"),
-)
+# model parameters' field, the option), refused by shard_model.  None is
+# left: the whole-domain sums, transforms and draws of SAL_HARMONICS,
+# HOMOGENIZE_FORCINGS, ICE_SHELF's SSA and SPPT/SKEB assemble the fields
+# they read (framework/stencil.py::whole), and the open boundaries'
+# masks and data are dense fields cut with the rest.
+REFUSED_ON_RANKS = ()
 
 
 def check_decomposable(params) -> None:

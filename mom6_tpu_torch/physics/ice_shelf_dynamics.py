@@ -14,6 +14,11 @@ operator application on the card (480 applications with the defaults).
 The driving stress of a floating shelf is the adjoint of the gradient
 acting on 0.5 g' H^2, g' = rho_i g (1 - rho_i / rho_w); corners with no
 ice next to them are pinned to 0.  A tripolar grid is refused.
+
+On a mesh of ranks (parallel/mesh.py) the strain operators take their
+neighbours through the mesh's shifts, and the CG's inner products and
+the driving stress's norm sum the assembled global field as one rank
+does (framework/stencil.py::whole_sum), so that N ranks equal one.
 """
 
 from __future__ import annotations
@@ -23,7 +28,8 @@ import dataclasses
 import torch
 
 from mom6_tpu_torch.framework.arith import cpow, csqrt
-from mom6_tpu_torch.framework.stencil import im1, ip1, jm1, jp1
+from mom6_tpu_torch.framework.stencil import (im1, ip1, jm1, jp1, whole_max,
+                                              whole_sum)
 
 __all__ = ["SSAParams", "ssa_solve", "ice_shelf_advect_thickness"]
 
@@ -141,13 +147,13 @@ def ssa_solve(h, G, p: SSAParams, mask_shelf=None, u0=None, v0=None,
     m_all = mask_shelf * ip1(mask_shelf) * jp1(mask_shelf) \
         * ip1(jp1(mask_shelf))
     pin = (1.0 - torch.clamp(m_any, max=1.0)) + 0.0 * m_all
-    bscale = csqrt(torch.sum(tdx * tdx + tdy * tdy)) + 1e-30
+    bscale = csqrt(whole_sum(tdx * tdx + tdy * tdy)) + 1e-30
     b = torch.stack([tdx, tdy]) / bscale
 
     residuals = []
     for _ in range(p.n_picard):
         nu_h = _glen_visc(u, v, hm, G, p) * mask_shelf
-        drag = beta_q + torch.amax(nu_h) * (1e-6 * pin + 3e-11)
+        drag = beta_q + whole_max(nu_h) * (1e-6 * pin + 3e-11)
 
         def matvec(x):
             fu, fv = _apply_ssa(x[0], x[1], nu_h, G, mask_q, area, drag)
@@ -156,13 +162,13 @@ def ssa_solve(h, G, p: SSAParams, mask_shelf=None, u0=None, v0=None,
         x = torch.stack([u, v]) / bscale
         r = b - matvec(x)
         pvec = r
-        rs = torch.sum(r * r)
+        rs = whole_sum(r * r)
         for _ in range(p.n_cg):
             ap = matvec(pvec)
-            alpha = rs / torch.clamp(torch.sum(pvec * ap), min=1e-30)
+            alpha = rs / torch.clamp(whole_sum(pvec * ap), min=1e-30)
             x = x + alpha * pvec
             r = r - alpha * ap
-            rs_new = torch.sum(r * r)
+            rs_new = whole_sum(r * r)
             pvec = r + (rs_new / torch.clamp(rs, min=1e-30)) * pvec
             rs = rs_new
         residuals.append(rs)

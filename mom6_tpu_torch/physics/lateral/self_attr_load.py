@@ -22,6 +22,10 @@ in float32; the port transforms those float32 values in float64 and
 rounds the result to float32, so that the card's FFT and the CPU's,
 which round differently in float32, give the same float32 result.  It
 parts from the reference's by float32 round-off.
+
+On a mesh of ranks (parallel/mesh.py) the matrices stay whole on every
+rank, each rank transforms the assembled global free surface as one
+rank does and keeps its tile of the result.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import numpy as np
 import torch
 
 from mom6_tpu_torch.framework.containers import TensorDataclass, fields_equal
+from mom6_tpu_torch.framework.stencil import tile, whole
 
 __all__ = ["SALHarmonics", "build_sal_harmonics", "calc_sal_harmonic"]
 
@@ -122,7 +127,10 @@ def calc_sal_harmonic(eta, sal: SALHarmonics):
     """The SAL height (ny, nx) [m] of the free surface ``eta`` (ny, nx):
     the free surface rounded to float32 and the float32 matrices, as the
     reference's, the transform evaluated in float64 and its result
-    rounded to float32, returned in ``eta``'s dtype."""
+    rounded to float32, returned in ``eta``'s dtype.  On a mesh ``eta``
+    is a tile, and so is the result."""
+    dtype = eta.dtype
+    eta = whole(eta)
     nx = eta.shape[-1]
     f64 = torch.float64
     F = torch.fft.rfft(eta.to(torch.float32).to(f64), dim=-1)
@@ -138,4 +146,4 @@ def calc_sal_harmonic(eta, sal: SALHarmonics):
     Ffull = torch.zeros_like(F)
     Ffull[:, :M] = torch.complex(g_re, g_im).T
     out = torch.fft.irfft(Ffull, n=nx, dim=-1)
-    return out.to(torch.float32).to(eta.dtype)
+    return tile(out.to(torch.float32).to(dtype))

@@ -29,7 +29,8 @@ import numpy as np
 import torch
 
 from mom6_tpu_torch.framework.random import normal, split
-from mom6_tpu_torch.framework.stencil import fold_ghost, im1, ip1, jm1, jp1
+from mom6_tpu_torch.framework.stencil import (fold_ghost, global_plane, im1,
+                                              ip1, jm1, jp1, off_mesh, tile)
 
 __all__ = ["SPPTParams", "ar1_pattern", "apply_sppt", "apply_skeb"]
 
@@ -59,11 +60,13 @@ def ar1_pattern(pattern, key, dt: float, p: SPPTParams):
     phi = np.exp(npd(-dt / p.tau))
     scale = np.sqrt(np.maximum(npd(1.0) - phi * phi, npd(0.0))) \
         * npd(p.amplitude)
-    noise = _smooth(normal(sub, tuple(pattern.shape), pattern.dtype),
-                    p.smooth_passes)
-    # renormalized to unit variance
-    noise = noise / torch.clamp(torch.std(noise, correction=0), min=1e-12)
-    return float(phi) * pattern + float(scale) * noise, key
+    shape = tuple(pattern.shape[:-2]) + global_plane(pattern)
+    with off_mesh():
+        noise = _smooth(normal(sub, shape, pattern.dtype), p.smooth_passes)
+        # renormalized to unit variance
+        noise = noise / torch.clamp(torch.std(noise, correction=0),
+                                    min=1e-12)
+    return float(phi) * pattern + float(scale) * tile(noise), key
 
 
 def apply_sppt(tendency, pattern, p: SPPTParams):

@@ -36,8 +36,13 @@ tiles (tests/torch_mesh_tasks.py).
 * The ensemble over ranks (4 members each on one rank, 2 members each on
   a 1x2 and a 2x1 mesh) and one EAKF analysis over ranks, to the bit
   with one process.
-* The options refused on ranks, the builder on a mesh and run_segment's
-  stats on a mesh.
+* Every step_mom option on ranks (SAL_HARMONICS with the tides,
+  HOMOGENIZE_FORCINGS, ICE_SHELF, the SSA solve, SPPT, SKEB across the
+  fold, the open boundaries of kelvin, dome and tidal_bay), the restart
+  between layouts and a run split on ranks, the diag_table's written
+  variables and the truncation dossier, each on the 2x2 mesh to the
+  bit with one rank, in f32 and f64; the quarter turn refused on a
+  tile; the builder on a mesh and run_segment's stats on a mesh.
 
 Inputs are made with numpy from seeds; the ensemble members differ by
 their winds, as in the reference.  Time: see CHANGES.md.
@@ -88,11 +93,11 @@ def tripolar_dir(tmp_path_factory):
     return str(d)
 
 
-def _bitwise(out, what):
+def _bitwise(out, what, layouts=LAYOUTS):
     """Every layout's arrays equal to the bit to the port's own run off a
     mesh (and so to each other)."""
     want = out.pop("plain")
-    assert set(out) == set(LAYOUTS)
+    assert set(out) == set(layouts)
     for layout, got in out.items():
         assert set(got) == set(want)
         for k, a in got.items():
@@ -200,28 +205,11 @@ def test_ppm_tile_launches(ranks, fold, monotonic, simple_2nd):
                        monotonic, simple_2nd)[0], "ppm")
 
 
-def test_options_refused_on_ranks(ranks):
-    """Each option whose whole-domain work is not decomposed raises at
-    shard_model, naming itself."""
-    from mom6_tpu_torch.parallel.mesh import REFUSED_ON_RANKS
-    out = ranks.run("torch_mesh_tasks:refusals")
-    for field, option in REFUSED_ON_RANKS:
-        for r in out:
-            assert r[field] is not None and option in r[field], field
-
-
-def test_host_work_refused_on_ranks(ranks, tmp_path):
-    """The restart, the diag_table's output and the truncation dossier
-    read whole fields on the host: on a tile they raise, naming
-    themselves, and write nothing."""
-    out = ranks.run("torch_mesh_tasks:host_refusals",
-                    str(tmp_path / "MOM.res.nc"))
-    names = dict(save="restart", restore="restart", diag="diag_table",
-                 dossier="point_accel")
-    for r in out:
-        for what, name in names.items():
-            assert r[what] is not None and name in r[what], what
-    assert not list(tmp_path.iterdir())
+def test_quarter_turn_refused_on_ranks(ranks):
+    """The quarter turn of framework/array_transform.py turns whole
+    fields: on a tile it raises, naming itself."""
+    for msg in ranks.run("torch_mesh_tasks:quarter_turn_refused"):
+        assert msg is not None and "quarter turn" in msg
 
 
 def test_build_on_a_mesh(ranks, tripolar_dir):
@@ -396,3 +384,138 @@ def test_eakf_analysis_on_ranks(ranks, ne, spatial, loc, infl):
     for k in ("dT", "dS"):
         assert np.array_equal(out["ranks"][k], out["one"][k]), k
         assert np.abs(out["one"][k]).max() > 1e-3, k
+
+
+# --- every step_mom option and the host work on ranks -------------------------
+
+OPT_LAYOUTS = ((2, 2),)
+SMALL_BENCH = "NIGLOBAL = 16\nNJGLOBAL = 12\nNK = 4\n"
+RESERVOIRS = "OBC_TRACER_RESERVOIR_LENGTH_SCALE_IN = 3000.0\n" \
+    "OBC_TRACER_RESERVOIR_LENGTH_SCALE_OUT = 30000.0\n"
+# option: (configs/<name>, or "sph" / "tripolar" for the run directories
+# of the fixtures, the parameters on top, thermo cycles, state fields
+# compared beside h, u, v, T, S)
+OPTIONS = {
+    "sal_harmonics_tides": ("sph", "TIDES = True\nSAL_HARMONICS = True\n",
+                            1, ("time",)),
+    "homogenize_forcings": ("benchmark",
+                            SMALL_BENCH + "HOMOGENIZE_FORCINGS = True\n", 1,
+                            ()),
+    "ice_shelf": ("isomip", "", 1, ()),
+    "sppt": ("benchmark", SMALL_BENCH + "DO_SPPT = True\n", 1,
+             ("sppt_pattern", "rng_key")),
+    "skeb_tripolar": ("tripolar", TRIPOLAR + "DO_SKEB = True\n", 2,
+                      ("skeb_pattern", "rng_key")),
+    "obc_kelvin": ("kelvin", "", 1, ()),
+    "obc_dome": ("dome", RESERVOIRS, 1, ("obc_res_T", "obc_res_S")),
+    "obc_tidal_bay": ("tidal_bay", "", 1, ("obc_res_T", "obc_res_S")),
+}
+# the restarts' model: the small benchmark with both stochastic patterns,
+# so that the files carry the patterns and the threefry key
+RESTART = ("benchmark", SMALL_BENCH + "DO_SPPT = True\nDO_SKEB = True\n")
+
+
+@pytest.fixture(scope="module")
+def sph_dir(tmp_path_factory):
+    """A run directory whose MOM_input is the reference's spherical
+    16x12x3 basin of its tides and SAL tests."""
+    import torch_gates
+    d = tmp_path_factory.mktemp("mesh_sph")
+    (d / "MOM_input").write_text(torch_gates.TIDES_SPH)
+    return str(d)
+
+
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+@pytest.mark.parametrize("option", sorted(OPTIONS))
+def test_option_on_ranks(ranks, tripolar_dir, sph_dir, option, dt):
+    """Each option with whole-domain work, through step_mom on the 2x2
+    mesh, to the bit with one rank (the patterns and the key
+    of SPPT/SKEB, the open boundaries' tracer reservoirs and the
+    tides' clock too)."""
+    config, text, n, extra = OPTIONS[option]
+    run_dir = {"sph": sph_dir, "tripolar": tripolar_dir}.get(config)
+    out = ranks.run("torch_mesh_tasks:option_cycles", dt,
+                    None if run_dir else config, text, n, extra, run_dir)[0]
+    plain = out["plain"]
+    for k in extra:
+        assert plain[k] is not None, k
+        if k.endswith("pattern"):
+            assert np.abs(plain[k]).max() > 0.0, k
+    _bitwise(out, option, OPT_LAYOUTS)
+
+
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+def test_ssa_solve_on_ranks(ranks, dt):
+    """ssa_solve through the library API: the strain operators' shifts
+    on the mesh and the CG's sums in the one-rank order."""
+    out = ranks.run("torch_mesh_tasks:ssa", dt)[0]
+    assert np.abs(out["plain"]["u"]).max() > 0.0
+    _bitwise(out, "ssa", OPT_LAYOUTS)
+
+
+def _fields_equal(got, want):
+    assert sorted(got) == sorted(want)
+    for k, a in got.items():
+        assert a.shape == want[k].shape, k
+        assert np.array_equal(a, want[k]), (k, float(np.max(np.abs(
+            a.astype(np.float64) - want[k].astype(np.float64)))))
+
+
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+def test_restart_ranks_to_one_rank(ranks, tmp_path, dt):
+    """A restart written on the 2x2 mesh (whole, and with IO_LAYOUT 2,2)
+    is the file one rank writes, variable by variable, and restores on
+    one rank to the one-rank cycle's fields."""
+    out = ranks.run("torch_mesh_tasks:restart_to_one", dt, str(tmp_path),
+                    *RESTART)[0]
+    assert out["same_files"]
+    assert out["time"] == (1800.0, 3)
+    assert {"sppt_pattern", "skeb_pattern", "rng_key"} <= set(out["names"])
+    _fields_equal(out["restored"], out["want"])
+
+
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+def test_restart_one_rank_to_ranks(ranks, tmp_path, dt):
+    """A restart written on one rank (whole, and as IO_LAYOUT 2,2 tiles)
+    restores on the 2x2 mesh, each rank its tile."""
+    out = ranks.run("torch_mesh_tasks:restart_from_one", dt, str(tmp_path),
+                    *RESTART)[0]
+    _fields_equal(out["whole"], out["want"])
+    _fields_equal(out["io"], out["want"])
+
+
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+def test_split_run_on_ranks(ranks, tmp_path, dt):
+    """Two cycles on the 2x2 mesh split by a restart equal two straight
+    cycles on one rank."""
+    out = ranks.run("torch_mesh_tasks:split_run", dt, str(tmp_path),
+                    *RESTART)[0]
+    _fields_equal(out["ranks"], out["one"])
+
+
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+def test_diag_table_on_ranks(ranks, tripolar_dir, tmp_path, dt):
+    """configs/global_2deg's diag_table after a cycle of the tripolar
+    model: every variable the 2x2 mesh's rank 0 writes equals one rank's
+    file."""
+    table = os.path.join(REPO, "configs", "global_2deg", "diag_table")
+    out = ranks.run("torch_mesh_tasks:diag_table", dt, tripolar_dir,
+                    TRIPOLAR, table, str(tmp_path))[0]
+    want = out.pop("plain")
+    assert len(want["ocean_diags"]) > 20
+    for layout, got in out.items():
+        assert sorted(got) == sorted(want), layout
+        for name in want:
+            _fields_equal(got[name], want[name])
+
+
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+def test_dossier_on_ranks(ranks, tripolar_dir, dt):
+    """The truncation dossier of the flowing tripolar state: the 2x2
+    mesh's rank 0's equals one rank's."""
+    out = ranks.run("torch_mesh_tasks:dossier", dt, tripolar_dir,
+                    TRIPOLAR)[0]
+    want = out.pop("plain")
+    assert want["cfl"] > 0.0
+    for layout, got in out.items():
+        assert got == want, layout

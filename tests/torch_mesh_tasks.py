@@ -10,11 +10,13 @@ group skips that layout.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 import torch.distributed
 
-from mom6_tpu_torch.parallel.mesh import Mesh, gather, shard_over
+from mom6_tpu_torch.parallel.mesh import Mesh, gather, shard_model, shard_over
 
 LAYOUTS = ((1, 1), (1, 2), (2, 1), (2, 2))
 DTYPES = {"f32": torch.float32, "f64": torch.float64}
@@ -24,10 +26,11 @@ def _ranks_of(shape):
     return tuple(range(shape[0] * shape[1]))
 
 
-def on_layouts(ctx, build, run, fetch, layouts=LAYOUTS):
+def on_layouts(ctx, build, run, fetch, layouts=LAYOUTS, shard=shard_over):
     """{layout: fetch(gathered result)} on rank 0 ({} elsewhere), and
     under "plain" the run off any mesh: ``build()`` -> the global model
-    tuple, ``run(mesh, tiles)`` -> the tree to gather."""
+    tuple, ``shard(mesh, whole)`` -> the tiles, ``run(mesh, tiles)`` ->
+    the tree to gather."""
     out = {}
     if ctx.rank == 0:
         # the port off any mesh
@@ -38,7 +41,7 @@ def on_layouts(ctx, build, run, fetch, layouts=LAYOUTS):
         if ctx.rank not in ranks:
             continue
         mesh = Mesh(shape, group=ctx.group(ranks), device="cpu")
-        tiles = shard_over(mesh, build())
+        tiles = shard(mesh, build())
         with mesh, torch.inference_mode():
             res = run(mesh, tiles)
         got = gather(mesh, res)
@@ -530,56 +533,18 @@ def eakf(ctx, dt_name, ne, spatial, loc_radius, inflation):
 
 # --- builders, refusals and the driver on ranks ----------------------------
 
-def refusals(ctx):
-    """shard_model of thermo_gyre with each option of REFUSED_ON_RANKS
-    switched on, on the 2x2 mesh: {field: the NotImplementedError's
-    message, or None where it built}."""
-    import dataclasses
-    from mom6_tpu_torch.drivers.experiments import thermo_gyre
-    from mom6_tpu_torch.parallel.mesh import REFUSED_ON_RANKS, shard_model
-    G, GV, st, p, f = thermo_gyre(nx=16, ny=16, nz=3, device="cpu")
+def quarter_turn_refused(ctx):
+    """The quarter turn of framework/array_transform.py on a tile of the
+    2x2 mesh: the NotImplementedError's message, or None where it ran."""
+    from mom6_tpu_torch.framework.array_transform import rotate_scalar
     mesh = Mesh((2, 2), group=None, device="cpu")
-    on = dict(sal_harmonics=object(), homogenize_forcings=True,
-              obc=object(), shelf=object(), sppt=object(), skeb_scale=1.0)
-    out = {}
-    for field, _ in REFUSED_ON_RANKS:
-        q = dataclasses.replace(p, **{field: on[field]})
-        try:
-            shard_model(mesh, G, GV, st, q, f)
-            out[field] = None
-        except NotImplementedError as e:
-            out[field] = str(e)
-    return out
-
-
-def host_refusals(ctx, path):
-    """The host work that needs whole fields, on a tile of the 2x2 mesh:
-    {what: the NotImplementedError's message, or None where it ran}."""
-    from mom6_tpu_torch.diagnostics.point_accel import worst_cfl_dossier
-    from mom6_tpu_torch.drivers.experiments import thermo_gyre
-    from mom6_tpu_torch.framework.diag_mediator import DiagMediator
-    from mom6_tpu_torch.framework.restart import RestartRegistry
-    mesh = Mesh((2, 2), group=None, device="cpu")
-    G, GV, st, p, f = shard_over(mesh, thermo_gyre(nx=16, ny=16, nz=3,
-                                                   device="cpu"))
-    reg = RestartRegistry()
-    reg.register_state(st)
-    dm = DiagMediator()
-    hid = dm.register_diag_field("ocean", "ssh", units="m", time_avg=True)
-    calls = {
-        "save": lambda: reg.save_restart(f"{path}.{ctx.rank}", st),
-        "restore": lambda: reg.restore_state(f"{path}.{ctx.rank}", st),
-        "diag": lambda: dm.post_data(hid, st.h[0]),
-        "dossier": lambda: worst_cfl_dossier(st, G, 1200.0)}
-    out = {}
-    for what, call in calls.items():
-        try:
-            with mesh:
-                call()
-            out[what] = None
-        except NotImplementedError as e:
-            out[what] = str(e)
-    return out
+    a = shard_over(mesh, torch.zeros((8, 8)))
+    try:
+        with mesh:
+            rotate_scalar(a)
+        return None
+    except NotImplementedError as e:
+        return str(e)
 
 
 def build_on_mesh(ctx, run_dir, overrides):
@@ -675,3 +640,244 @@ def widehalo_cycle(ctx, run_dir, overrides):
             out[name] = {k: _np(v) for k, v in got.items()}
             out[name + "_exchanges"] = mesh.exchanges
     return out
+
+
+# --- every step_mom option and the host work on ranks -------------------------
+
+# the layout of the option and host-work tasks: four ranks, the plane
+# split in both axes (the fold's partner tiles on the top rank row)
+OPT_LAYOUTS = ((2, 2),)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def param_model(dtype, config=None, text="", run_dir=None):
+    """build_model_from_params of configs/<config> (or of ``run_dir``)
+    with ``text`` on top of its MOM_input, on the CPU: the ModelSetup."""
+    from mom6_tpu_torch.drivers.config_driver import build_model_from_params
+    from mom6_tpu_torch.framework.config import ParamFile
+    d = run_dir or os.path.join(REPO, "configs", config)
+    return build_model_from_params(
+        ParamFile([os.path.join(d, "MOM_input")], text=text or None),
+        dtype=dtype, device="cpu", input_dir=d)
+
+
+def _whole(ms):
+    return ms.grid, ms.vgrid, ms.state, ms.params, ms.forcing
+
+
+def _shard_model(mesh, whole):
+    return shard_model(mesh, *whole)
+
+
+def cycles(mesh, tiles, provider, n):
+    """``n`` thermo cycles (step_mom) of the model ``tiles``, each with
+    the provider's forcing at its start where there is a provider (cut
+    to the tile on a mesh)."""
+    from mom6_tpu_torch.core.mom import step_mom
+    G, GV, st, p, f = tiles
+    for c in range(n):
+        if provider is not None:
+            f = provider(c * p.dyn.dt * p.n_dyn_per_thermo)
+            if mesh is not None:
+                f = shard_over(mesh, f)
+        st = step_mom(st, f, G, GV, p)
+    return st
+
+
+def option_cycles(ctx, dt_name, config, text="", n=1, extra=(),
+                  run_dir=None):
+    """``n`` thermo cycles of configs/<config> (or of ``run_dir``) with
+    ``text``, built once, cut by shard_model on the layouts of
+    :data:`OPT_LAYOUTS`: h, u, v, T, S and the ``extra`` state fields."""
+    ms = param_model(DTYPES[dt_name], config, text, run_dir)
+
+    def run(mesh, tiles):
+        return cycles(mesh, tiles, ms.forcing_provider, n)
+
+    def fetch(st):
+        return dict(state_arrays(st),
+                    **{k: _np(getattr(st, k)) for k in extra})
+    return on_layouts(ctx, lambda: _whole(ms), run, fetch, OPT_LAYOUTS,
+                      _shard_model)
+
+
+def ssa(ctx, dt_name):
+    """ssa_solve (two Picard iterations of 12 CG iterations) of a shelf
+    that thins eastward over a 16x16 walled basin, seeded: the corner
+    velocities and the CG residuals."""
+    from mom6_tpu_torch.grid.grid import build_cartesian_grid
+    from mom6_tpu_torch.physics.ice_shelf_dynamics import SSAParams, \
+        ssa_solve
+    dtype = DTYPES[dt_name]
+    G = build_cartesian_grid(ny=16, nx=16, len_lon_km=160.0,
+                             len_lat_km=160.0, max_depth=1000.0,
+                             dtype=dtype, device="cpu")
+    rng = np.random.default_rng(4)
+    x = np.arange(16)[None, :] * np.ones((16, 1))
+    h = np.where(x < 12, 600.0 * (1.0 - x / 16.0), 0.0) \
+        + 5.0 * rng.uniform(size=(16, 16))
+    h = torch.as_tensor(h, dtype=dtype) * G.mask2dT
+
+    def run(mesh, tiles):
+        G, h = tiles
+        u, v = ssa_solve(h, G, SSAParams(n_picard=2, n_cg=12))
+        return {"u": u, "v": v, "residuals": ssa_solve.residuals}
+    return on_layouts(ctx, lambda: (G, h), run,
+                      lambda x: {k: _np(v) for k, v in x.items()},
+                      OPT_LAYOUTS)
+
+
+def _registered(reg, st):
+    return {n: _np(reg.get(n, st)) for n in reg.names}
+
+
+def restart_to_one(ctx, dt_name, tmp, config, text):
+    """A cycle on the 2x2 mesh and on one rank, each saved to a restart
+    (whole and with IO_LAYOUT 2,2); rank 0 then restores the ranks' file
+    on one rank: {"same_files": whether the files are equal variable by
+    variable, "restored"/"want": the registered fields}."""
+    import torch.distributed as dist
+    from mom6_tpu_torch.framework.restart import RestartRegistry
+    from mom6_tpu_torch.io.netcdf import read_nc
+    ms = param_model(DTYPES[dt_name], config, text)
+    whole = _whole(ms)
+    out = {}
+    mesh = Mesh((2, 2), group=None, device="cpu")
+    tiles = shard_model(mesh, *whole)
+    with mesh, torch.inference_mode():
+        st = cycles(mesh, tiles, ms.forcing_provider, 1)
+        reg = RestartRegistry()
+        reg.register_state(st)
+        for name, layout in (("ranks.nc", None), ("ranks_io.nc", (2, 2))):
+            reg.save_restart(os.path.join(tmp, name), st, time_seconds=1800.0,
+                             step=3, io_layout=layout)
+    dist.barrier()
+    if ctx.rank != 0:
+        return out
+    with torch.inference_mode():
+        st1 = cycles(None, whole, ms.forcing_provider, 1)
+        reg = RestartRegistry()
+        reg.register_state(st1)
+        for name, layout in (("one.nc", None), ("one_io.nc", (2, 2))):
+            reg.save_restart(os.path.join(tmp, name), st1,
+                             time_seconds=1800.0, step=3, io_layout=layout)
+        back, t, step = reg.restore_state(os.path.join(tmp, "ranks.nc"),
+                                          whole[2])
+    files = [("ranks.nc", "one.nc")] + [
+        (f"ranks_io.nc.{n:04d}", f"one_io.nc.{n:04d}") for n in range(4)]
+    same = True
+    for a, b in files:
+        x, y = (read_nc(os.path.join(tmp, f)) for f in (a, b))
+        same = same and sorted(x) == sorted(y) and all(
+            np.array_equal(x[k], y[k]) for k in x)
+    out.update(same_files=same, time=(t, step), names=reg.names,
+               restored=_registered(reg, back), want=_registered(reg, st1))
+    return out
+
+
+def restart_from_one(ctx, dt_name, tmp, config, text):
+    """A cycle on one rank saved (whole and with IO_LAYOUT 2,2) by rank
+    0, restored on the 2x2 mesh from each file and gathered: {"whole",
+    "io": the registered fields, "want": one rank's}."""
+    import torch.distributed as dist
+    from mom6_tpu_torch.framework.restart import RestartRegistry
+    ms = param_model(DTYPES[dt_name], config, text)
+    whole = _whole(ms)
+    out = {}
+    if ctx.rank == 0:
+        with torch.inference_mode():
+            st1 = cycles(None, whole, ms.forcing_provider, 1)
+        reg = RestartRegistry()
+        reg.register_state(st1)
+        for name, layout in (("one.nc", None), ("one_io.nc", (2, 2))):
+            reg.save_restart(os.path.join(tmp, name), st1, io_layout=layout)
+        out["want"] = _registered(reg, st1)
+    dist.barrier()
+    mesh = Mesh((2, 2), group=None, device="cpu")
+    G, GV, st, p, f = shard_model(mesh, *whole)
+    with mesh, torch.inference_mode():
+        reg = RestartRegistry()
+        reg.register_state(st)
+        for key, name in (("whole", "one.nc"), ("io", "one_io.nc")):
+            back = reg.restore_state(os.path.join(tmp, name), st)[0]
+            got = {n: gather(mesh, reg.get(n, back)) for n in reg.names}
+            if mesh.rank == 0:
+                out[key] = {n: _np(v) for n, v in got.items()}
+    return out
+
+
+def split_run(ctx, dt_name, tmp, config, text):
+    """Two cycles on the 2x2 mesh split by a restart the ranks save and
+    restore, against two straight cycles on one rank: the registered
+    fields of each."""
+    from mom6_tpu_torch.framework.restart import RestartRegistry
+    ms = param_model(DTYPES[dt_name], config, text)
+    whole = _whole(ms)
+    out = {}
+    mesh = Mesh((2, 2), group=None, device="cpu")
+    G, GV, st, p, f = shard_model(mesh, *whole)
+    path = os.path.join(tmp, "split.nc")
+    with mesh, torch.inference_mode():
+        s1 = cycles(mesh, (G, GV, st, p, f), ms.forcing_provider, 1)
+        reg = RestartRegistry()
+        reg.register_state(st)
+        reg.save_restart(path, s1)
+        back = reg.restore_state(path, st)[0]
+        s2 = cycles(mesh, (G, GV, back, p, f), ms.forcing_provider, 1)
+        got = {n: gather(mesh, reg.get(n, s2)) for n in reg.names}
+    if ctx.rank == 0:
+        out["ranks"] = {n: _np(v) for n, v in got.items()}
+        with torch.inference_mode():
+            want = cycles(None, whole, ms.forcing_provider, 2)
+        out["one"] = _registered(reg, want)
+    return out
+
+
+def dossier(ctx, dt_name, run_dir, overrides):
+    """worst_cfl_dossier of the flowing tripolar model's state (rank 0's
+    dict; None elsewhere)."""
+    from mom6_tpu_torch.diagnostics.point_accel import worst_cfl_dossier
+
+    def run(mesh, tiles):
+        G, GV, st, p, f = tiles
+        return worst_cfl_dossier(st, G, 1200.0)
+    return on_layouts(ctx, lambda: tripolar_model(run_dir, overrides,
+                                                  DTYPES[dt_name]),
+                      run, lambda d: d, OPT_LAYOUTS)
+
+
+def diag_table(ctx, dt_name, run_dir, overrides, table, tmp):
+    """A cycle of the flowing tripolar model, then the diag_table's
+    fields posted as the CLI posts them (drivers/solo.py's
+    _table_setup and _post_table_diags, the mediator built from the
+    global grid) and written by flush_all: every variable of the written
+    file, per layout."""
+    from mom6_tpu_torch.core.mom import step_mom
+    from mom6_tpu_torch.drivers.solo import _post_table_diags, _table_setup
+    from mom6_tpu_torch.framework.diag_mediator import DiagMediator
+    from mom6_tpu_torch.io.netcdf import read_nc
+    dtype = DTYPES[dt_name]
+    whole = tripolar_model(run_dir, overrides, dtype)
+    G, GV, st, p, f = whole
+    nz = st.h.shape[0]
+    z_targets = np.asarray(p.ale.dz_nominal) if p.ale.dz_nominal \
+        else np.full(nz, float(G.bathyT.max()) / nz)
+    kw = dict(z_targets=z_targets,
+              rho_targets=GV.Rlay.numpy().astype(np.float64)
+              if GV.Rlay is not None else None,
+              nz_sigma=nz, areaT=G.areaT.numpy(), device="cpu")
+    n = [0]
+
+    def run(mesh, tiles):
+        G, GV, st, p, f = tiles
+        out = os.path.join(tmp, f"diags{n[0]}_{ctx.rank}")
+        n[0] += 1
+        os.makedirs(out, exist_ok=True)
+        dm = DiagMediator.from_diag_table(table, **kw)
+        ke_fn, tend_fn = _table_setup(dm, st, p, f, G, GV, out)
+        s = step_mom(st, f, G, GV, p)
+        _post_table_diags(dm, s, G, GV, p, f, ke_fn, tend_fn)
+        files = dm.flush_all(out, time_seconds=1800.0)
+        return {name: read_nc(os.path.join(out, name + ".nc"))
+                for name in files}
+    return on_layouts(ctx, lambda: whole, run, lambda d: d, OPT_LAYOUTS)
